@@ -1,0 +1,175 @@
+"""Command-line driver for the PyTorch port: render / animate.
+
+Port of the ``render`` and ``animate`` verbs of
+``raytracing_test_tpu/app/cli.py`` with its arguments and defaults, plus
+``--device``. Each frame mirrors ``WorldSession.render``: pick the looked-at
+block on the host tree (``app/picking.cast_ray``), then draw through the
+fused march (``kernels/fused_march.render_image_fused``).
+
+    python -m raytracing_test_tpu_torch.app.cli --device cuda render --out frame.png
+    python -m raytracing_test_tpu_torch.app.cli --device cuda animate --frames 8 --out-dir anim/
+
+``edit``, ``fit`` and ``probe`` are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import struct
+import time
+import zlib
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+
+from raytracing_test_tpu.app import picking
+from raytracing_test_tpu.config import CameraConfig, RenderConfig, world_for_size
+from raytracing_test_tpu.worldgen import terrain
+
+from ..core.flatten import Scene, scene_from_grid
+from ..kernels.fused_march import render_image_fused
+from ..render.camera import Camera, yaw_pitch_dir
+
+
+def write_png(img: np.ndarray, path: str) -> None:
+    """Float RGB image [H, W, 3] in [0, 1] -> 8-bit PNG (stdlib only).
+    Raises on non-finite pixels rather than writing them as black."""
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected an [H, W, 3] image, got {img.shape}")
+    if not np.isfinite(img).all():
+        raise ValueError(f"refusing to write {path}: the frame has non-finite pixels")
+    px = (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+    H, W, _ = px.shape
+    raw = b"".join(b"\x00" + px[r].tobytes() for r in range(H))  # filter 0 per row
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(
+            ">I", zlib.crc32(tag + data) & 0xFFFFFFFF
+        )
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(chunk(b"IEND", b""))
+
+
+@dataclass
+class View:
+    """World, scene and camera state of a CLI run (WorldSession's render half)."""
+
+    scene: Scene
+    tree: object  # host tree for picking (core.tree.VoxelTree)
+    pos: np.ndarray
+    yaw: float
+    pitch: float
+    time: float = 0.0
+
+    def camera_dir(self) -> np.ndarray:
+        return np.asarray(yaw_pitch_dir(self.yaw, self.pitch), np.float32)
+
+    def rotate(self, yaw_delta: float, pitch_delta: float) -> None:
+        """rotateCamera parity: pitch hard-clamped, yaw wrapped."""
+        if not (-90 < self.pitch + pitch_delta < 90):
+            pitch_delta = 0.0
+        self.pitch += pitch_delta
+        self.yaw += yaw_delta
+        if self.yaw > 180:
+            self.yaw -= 360
+        if self.yaw < -180:
+            self.yaw += 360
+
+    def render(self, rcfg: RenderConfig) -> torch.Tensor:
+        """One frame: pick for the looked-at highlight, then draw."""
+        res = picking.cast_ray(self.tree, self.pos, self.camera_dir(), 30)
+        if res.steps:
+            rcfg = replace(rcfg, looking_at=res.pos)
+        rcfg = replace(rcfg, time=self.time)
+        dev = self.scene.device
+        cam = Camera(
+            pos=torch.as_tensor(self.pos, dtype=torch.float32, device=dev),
+            dir=torch.as_tensor(self.camera_dir(), dtype=torch.float32, device=dev),
+        )
+        return render_image_fused(self.scene, cam, rcfg, time_s=rcfg.time)
+
+
+def make_view(args) -> View:
+    wcfg = world_for_size(args.world)
+    grid, pal = terrain.gen_world_grid(wcfg)
+    tree = terrain.gen_world_tree(wcfg, grid, pal)
+    scene = scene_from_grid(grid, pal, torch.device(args.device))
+    pos = (
+        np.asarray([float(v) for v in args.pos.split(",")], np.float64)
+        if args.pos
+        else np.asarray(CameraConfig().pos, np.float64)
+    )
+    return View(scene=scene, tree=tree, pos=pos, yaw=args.yaw, pitch=args.pitch)
+
+
+def _rcfg(args) -> RenderConfig:
+    return RenderConfig(
+        width=args.width,
+        height=args.height,
+        enable_ao=args.ao,
+        enable_shadows=not args.no_shadows,
+    )
+
+
+def cmd_render(args) -> None:
+    v = make_view(args)
+    img = v.render(_rcfg(args))
+    write_png(img.cpu().numpy(), args.out)
+    print(f"wrote {args.out}")
+
+
+def cmd_animate(args) -> None:
+    v = make_view(args)
+    os.makedirs(args.out_dir, exist_ok=True)
+    rcfg = _rcfg(args)
+    sync = torch.cuda.synchronize if v.scene.device.type == "cuda" else (lambda: None)
+    for i in range(args.frames):
+        v.time = i / 10.0  # drives the water surface animation
+        v.rotate(args.spin, 0.0)
+        t0 = time.perf_counter()
+        img = v.render(rcfg)
+        sync()
+        dt = time.perf_counter() - t0
+        write_png(img.cpu().numpy(), os.path.join(args.out_dir, f"frame_{i:04d}.png"))
+        print(f"frame {i}: {dt * 1e3:.1f} ms ({rcfg.width * rcfg.height / dt:.3e} rays/s, "
+              f"host clock, pick + render, {v.scene.device})")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="raytracing_test_tpu_torch")
+    p.add_argument("--device", default="cpu", help="torch device: cpu or cuda[:n]")
+    p.add_argument("--world", type=int, default=200, help="world columns per side")
+    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--height", type=int, default=512)
+    p.add_argument("--pos", type=str, default="")
+    p.add_argument("--yaw", type=float, default=45.0)
+    p.add_argument("--pitch", type=float, default=25.0)  # positive pitch looks down (ref convention)
+    p.add_argument("--ao", action="store_true", help="hemisphere AO (not ported yet: raises)")
+    p.add_argument("--no-shadows", action="store_true")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    r = sub.add_parser("render")
+    r.add_argument("--out", default="frame.png")
+    r.set_defaults(fn=cmd_render)
+
+    a = sub.add_parser("animate")
+    a.add_argument("--frames", type=int, default=8)
+    a.add_argument("--spin", type=float, default=3.0)
+    a.add_argument("--out-dir", default="anim")
+    a.set_defaults(fn=cmd_animate)
+    return p
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,140 @@
+"""PyTorch port: shading helpers against the JAX renderer on fixed random states.
+
+``skybox``, ``material_step`` and ``shade`` take the same numpy-made states in
+both packages. Tolerance: 1e-6 absolute, plus 1e-6 relative for values that
+grow with the ray parameter (tmax), because XLA may contract a*b+c into one
+FMA where PyTorch rounds twice.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raytracing_test_tpu.config import RenderConfig
+from raytracing_test_tpu.core import flatten as jflat
+from raytracing_test_tpu.core.types import Properties
+from raytracing_test_tpu.render import renderer as jr
+from raytracing_test_tpu_torch.core import flatten as tflat
+from raytracing_test_tpu_torch.render import renderer as tr
+from tests.test_render_parity import _material_world
+
+torch.set_num_threads(1)
+
+N = 512
+
+
+def _unit(rng, n):
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    d[: n // 8, 1] = 0.0  # axis-plane directions exercise the sanitiser
+    return (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+
+def _state(rng, n, flags_tab):
+    """A random mid-march state (numpy) plus per-lane flags and masks."""
+    d = _unit(rng, n)
+    step = np.where(d < 0, -1.0, 1.0).astype(np.float32)
+    dd = np.where(np.abs(d) < 1e-12, 1e-12, d).astype(np.float32)
+    absd = np.abs(np.float32(1.0) / dd).astype(np.float32)
+    seg = rng.uniform(0, 60, (n, 3)).astype(np.float32)
+    lt = rng.uniform(0, 10, n).astype(np.float32)
+    p = seg + lt[:, None] * d
+    st = dict(
+        mat=rng.integers(0, 6, n).astype(np.int32),
+        cell=np.floor(p).astype(np.int32),
+        dir=d, step=step, abs_delta=absd,
+        tmax=(lt[:, None] + rng.uniform(0, 1, (n, 3)) * absd).astype(np.float32),
+        seg_origin=seg, last_t=lt,
+        last_axis=rng.integers(0, 3, n).astype(np.int32),
+        color_mod=rng.uniform(0.5, 1.0, (n, 3)).astype(np.float32),
+        ior=np.where(rng.random(n) < 0.5, np.float32(1.1), np.float32(1.0)).astype(np.float32),
+        reflected=rng.random(n) < 0.2,
+        done=np.ones(n, bool),
+        steps=rng.integers(0, 300, n).astype(np.int32),
+    )
+    pick = rng.integers(0, 3, n)
+    is_refl = pick == 1
+    is_refr = pick == 2
+    fl = np.asarray(flags_tab)[rng.integers(0, len(flags_tab), n)].astype(np.int32)
+    return st, is_refl, is_refr, fl
+
+
+def _jax_state(st):
+    return jr._March(**{k: jnp.asarray(v) for k, v in st.items()})
+
+
+def _torch_state(st):
+    return tr._March(**{k: torch.from_numpy(np.array(v)) for k, v in st.items()})
+
+
+def test_skybox_matches_jax():
+    rng = np.random.default_rng(0)
+    d = _unit(rng, N)
+    sun = np.asarray([2.0, 1.0, 4.0], np.float32)
+    sun = sun / np.linalg.norm(sun)
+    want = np.asarray(jr.skybox(jnp.asarray(d), jnp.asarray(sun)))
+    got = tr.skybox(torch.from_numpy(d), torch.from_numpy(sun)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("time_s", [0.0, 1.7])
+def test_material_step_matches_jax(time_s):
+    rng = np.random.default_rng(1)
+    flags_tab = [int(Properties.LEAF | Properties.REFRACTIVE),
+                 int(Properties.LEAF | Properties.REFRACTIVE | Properties.LIQUID),
+                 int(Properties.LEAF | Properties.REFLECTIVE)]
+    st, is_refl, is_refr, fl = _state(rng, N, flags_tab)
+    cfg = RenderConfig()
+    want = jr.material_step(_jax_state(st), jnp.asarray(is_refl), jnp.asarray(is_refr),
+                            jnp.asarray(fl), cfg, jnp.float32(time_s))
+    got = tr.material_step(_torch_state(st), torch.from_numpy(is_refl),
+                           torch.from_numpy(is_refr), torch.from_numpy(fl), cfg,
+                           torch.tensor(time_s, dtype=torch.float32))
+    names = ["dir", "step", "abs_delta", "tmax", "seg_origin", "last_t", "color_mod", "ior",
+             "reflected"]
+    assert is_refr.any() and is_refl.any()
+    for name, w, g in zip(names, want, got):
+        w, g = np.asarray(w), g.numpy()
+        assert g.dtype == w.dtype, name
+        if g.dtype == bool:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6, err_msg=name)
+
+
+def test_shade_matches_jax():
+    rng = np.random.default_rng(2)
+    grid, pal = _material_world()
+    js = jflat.scene_from_grid(grid, pal)
+    ts = tflat.scene_from_grid(grid, pal, "cpu")
+    st, _, _, _ = _state(rng, N, [0])
+    mat0 = rng.integers(0, 6, N).astype(np.int32)
+    raw0 = (rng.random(N) < 0.1) & (mat0 != 0)
+    shadow = rng.random(N) < 0.5
+    look = tuple(int(v) for v in st["cell"][7])
+    cfg = RenderConfig(looking_at=look)
+    sun = np.asarray([2.0, 1.0, 4.0], np.float32)
+    sun = sun / np.linalg.norm(sun)
+
+    jcol, jaux = jr.shade(js, _jax_state(st), jnp.asarray(raw0), jnp.asarray(mat0),
+                          jnp.asarray(sun), cfg,
+                          lambda p, c, la, s, active: jnp.asarray(shadow) & active)
+    tcol, taux = tr.shade(ts, _torch_state(st), torch.from_numpy(raw0),
+                          torch.from_numpy(mat0), torch.from_numpy(sun), cfg,
+                          lambda p, c, la, s, active: torch.from_numpy(shadow) & active)
+    np.testing.assert_allclose(tcol.numpy(), np.asarray(jcol), rtol=0, atol=1e-6)
+    for k in ("hit", "mat", "cell", "steps", "last_axis", "normal", "reflected"):
+        np.testing.assert_array_equal(taux[k].numpy(), np.asarray(jaux[k]), err_msg=k)
+    np.testing.assert_allclose(taux["hit_pos"].numpy(), np.asarray(jaux["hit_pos"]),
+                               rtol=1e-6, atol=1e-6)
+    assert np.asarray(jcol).max() > 1.0  # the looked-at highlight fired
+
+
+def test_shade_rejects_ao():
+    grid, pal = _material_world()
+    ts = tflat.scene_from_grid(grid, pal, "cpu")
+    st, _, _, _ = _state(np.random.default_rng(3), 8, [0])
+    z = torch.zeros(8, dtype=torch.bool)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tr.shade(ts, _torch_state(st), z, torch.zeros(8, dtype=torch.int32),
+                 torch.ones(3), RenderConfig(enable_ao=True), lambda *a: z)
