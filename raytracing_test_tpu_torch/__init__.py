@@ -1,20 +1,27 @@
-"""raytracing_test_tpu_torch — the voxel raytracer's render path in PyTorch + CUDA.
+"""raytracing_test_tpu_torch — the voxel raytracer in PyTorch + CUDA.
 
 A port of ``raytracing_test_tpu`` (JAX/XLA/Pallas, the reference package) to
 PyTorch with hand-written CUDA kernels for NVIDIA Hopper. Module names mirror
 the reference package so each counterpart is easy to find:
 
+    config.py, core/types.py, core/color.py, core/tree.py, worldgen/,
+    app/picking.py         copies of the reference's JAX-free host modules
     core/flatten.py        Scene of tensors, scene_from_grid, scene_from_jax
     render/camera.py       Camera, ray_directions
     render/renderer.py     DDA helpers, material_step, shade
-    render/fast.py         the plain (pure PyTorch) march: the kernel's twin
-    kernels/fused_march.py wrapper around csrc/fused_march.cu
+    render/fast.py         the plain (pure PyTorch) march: the march kernel's twin
+    render/diff.py         DiffScene, field gathers, transmittance
+    render/progressive.py  seed_from_depth
+    kernels/fused_march.py wrapper around csrc/fused_march.cu; seed_depth_fused
+    kernels/fused_window.py wrapper around csrc/fused_window.cu (window
+                           forward/backward), render_window_fused, window_plain
     kernels/build.py       builds csrc/*.cu with nvcc at first use
-    app/cli.py             render / animate verbs
+    parallel/sharding.py   FitParams, guide, make_train_step_fused (one device)
+    app/fit.py, app/checkpoint.py  fit_world(engine="fused"), npz checkpoints
+    app/cli.py             render / animate / fit verbs
 
-Host-only modules with no JAX dependency (config, worldgen, core.tree,
-core.color, core.types, app.picking) are imported from the reference package.
-This package never imports ``jax``.
+This package imports nothing of ``raytracing_test_tpu`` and never imports
+``jax``.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

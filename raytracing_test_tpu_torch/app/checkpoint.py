@@ -1,0 +1,44 @@
+"""Fit checkpoints as npz, in the JAX package's layout.
+
+Port of ``save_fit`` / ``load_fit`` (``raytracing_test_tpu/app/checkpoint.py:44``).
+The reference flattens ``(params, opt_state, step)`` into ``leaf_0..leaf_7``:
+density_raw, albedo_raw, the Adam count, mu (density, albedo), nu (density,
+albedo) and the step. This module writes and reads that same layout, so a
+checkpoint of either package loads in the other; the state crosses over
+through ``parallel/sharding.py``'s converters.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..parallel.sharding import (
+    FitParams,
+    adam_state_from_optax,
+    adam_state_to_optax,
+    params_from_jax,
+)
+
+
+def save_fit(path: str, params: FitParams, optimizer: torch.optim.Adam, step: int) -> None:
+    """Save FitParams, the Adam state and the step to ``path`` (npz)."""
+    count, mu, nu = adam_state_to_optax(optimizer, params)
+    leaves = [
+        params.density_raw.detach().cpu().numpy(), params.albedo_raw.detach().cpu().numpy(),
+        count, mu[0], mu[1], nu[0], nu[1], np.asarray(step),
+    ]
+    np.savez_compressed(path, **{f"leaf_{i}": l for i, l in enumerate(leaves)})
+
+
+def load_fit(path: str, device="cpu"):
+    """Load a checkpoint written by either package's ``save_fit`` ->
+    (FitParams, Adam state for ``sharding.load_adam_state``, step)."""
+    data = np.load(path)
+    if len(data.files) != 8:
+        raise ValueError(f"{path}: expected the 8 leaves of (FitParams, adam state, step), "
+                         f"found {sorted(data.files)}")
+    leaf = [data[f"leaf_{i}"] for i in range(8)]
+    params = params_from_jax(leaf[0], leaf[1], device)
+    states = adam_state_from_optax(leaf[2], (leaf[3], leaf[4]), (leaf[5], leaf[6]))
+    return params, states, int(leaf[7])

@@ -1,15 +1,18 @@
-"""Command-line driver for the PyTorch port: render / animate.
+"""Command-line interface of the PyTorch port: render / animate / fit.
 
-Port of the ``render`` and ``animate`` verbs of
+Port of the ``render``, ``animate`` and ``fit`` verbs of
 ``raytracing_test_tpu/app/cli.py`` with its arguments and defaults, plus
-``--device``. Each frame mirrors ``WorldSession.render``: pick the looked-at
-block on the host tree (``app/picking.cast_ray``), then draw through the
-fused march (``kernels/fused_march.render_image_fused``).
+``--device`` (default ``cuda``; the tests pass ``--device cpu``). Each frame
+mirrors ``WorldSession.render``: pick the looked-at block on the host tree
+(``app/picking.cast_ray``), then draw through the fused march
+(``kernels/fused_march.render_image_fused``). ``fit`` runs
+``app/fit.fit_world`` on the fused engine, the only one ported.
 
-    python -m raytracing_test_tpu_torch.app.cli --device cuda render --out frame.png
-    python -m raytracing_test_tpu_torch.app.cli --device cuda animate --frames 8 --out-dir anim/
+    python -m raytracing_test_tpu_torch.app.cli render --out frame.png
+    python -m raytracing_test_tpu_torch.app.cli animate --frames 8 --out-dir anim/
+    python -m raytracing_test_tpu_torch.app.cli fit --steps 20
 
-``edit``, ``fit`` and ``probe`` are not ported yet (ROADMAP.md).
+``edit`` and ``probe`` are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -24,13 +27,12 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from raytracing_test_tpu.app import picking
-from raytracing_test_tpu.config import CameraConfig, RenderConfig, world_for_size
-from raytracing_test_tpu.worldgen import terrain
-
+from ..config import CameraConfig, FitConfig, RenderConfig, world_for_size
 from ..core.flatten import Scene, scene_from_grid
 from ..kernels.fused_march import render_image_fused
 from ..render.camera import Camera, yaw_pitch_dir
+from ..worldgen import terrain
+from . import picking
 
 
 def write_png(img: np.ndarray, path: str) -> None:
@@ -141,9 +143,28 @@ def cmd_animate(args) -> None:
               f"host clock, pick + render, {v.scene.device})")
 
 
+def cmd_fit(args) -> None:
+    from . import fit as fitmod
+
+    if args.out:
+        raise NotImplementedError(
+            "fit --out renders with the blind volumetric scan (render_image_diff), "
+            "which is not ported yet; see ROADMAP.md, 'Modules to port', item 10"
+        )
+    grid, pal = terrain.gen_world_grid(world_for_size(args.world))
+    scene = scene_from_grid(grid, pal, torch.device(args.device))
+    fcfg = FitConfig(
+        views=args.views, steps=args.steps, lr=args.lr, resolution=args.fit_res,
+        guided=args.guided, engine=args.engine, shading=args.shading,
+    )
+    _, losses = fitmod.fit_world(scene, grid.shape, fcfg, ckpt_path=args.ckpt or None,
+                                 batch=args.batch)
+    print(f"fit done: loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="raytracing_test_tpu_torch")
-    p.add_argument("--device", default="cpu", help="torch device: cpu or cuda[:n]")
+    p.add_argument("--device", default="cuda", help="torch device: cuda[:n] (default) or cpu")
     p.add_argument("--world", type=int, default=200, help="world columns per side")
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=512)
@@ -163,6 +184,23 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--spin", type=float, default=3.0)
     a.add_argument("--out-dir", default="anim")
     a.set_defaults(fn=cmd_animate)
+
+    f = sub.add_parser("fit")
+    f.add_argument("--views", type=int, default=8)
+    f.add_argument("--steps", type=int, default=100)
+    f.add_argument("--lr", type=float, default=0.05)
+    f.add_argument("--fit-res", type=int, default=64)
+    f.add_argument("--batch", type=int, default=8192)
+    f.add_argument("--ckpt", default="")
+    f.add_argument("--guided", action="store_true",
+                   help="surface-guided sampling (the fused engine always is)")
+    f.add_argument("--engine", default="fused", choices=["", "fused"],
+                   help="training engine: 'fused' = the seed march + window kernel pair "
+                   "(the only engine ported; '' raises)")
+    f.add_argument("--shading", action="store_true",
+                   help="fit face-shaded targets (matches the hard renderer's output)")
+    f.add_argument("--out", default="", help="render the fit (not ported yet: raises)")
+    f.set_defaults(fn=cmd_fit)
     return p
 
 

@@ -1,0 +1,94 @@
+"""Inverse rendering: fit voxel densities and albedos to target views.
+
+Port of ``raytracing_test_tpu/app/fit.py`` for the fused engine on one
+device: targets are rendered by the hard renderer from a ring of cameras
+around the world, then ``make_train_step_fused`` (seed march on an occupancy
+guide, window kernel pair, MSE, Adam) fits the continuous fields. The guide
+is re-thresholded from the evolving density every ``rethreshold_every``
+steps. Batches are drawn with numpy's ``default_rng(seed)``, as in the
+reference.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..config import FitConfig, RenderConfig
+from ..kernels.fused_march import render_rays_fused
+from ..parallel import sharding as shardlib
+from ..render.camera import Camera, ray_directions
+from . import checkpoint
+
+
+def ring_cameras(center, radius: float, height: float, n: int, device="cpu") -> List[Camera]:
+    """n cameras on a ring looking at ``center``."""
+    cams = []
+    cx, cy, cz = center
+    for i in range(n):
+        a = 2 * math.pi * i / n
+        pos = (cx + radius * math.cos(a), height, cz + radius * math.sin(a))
+        d = np.asarray([cx - pos[0], cy - pos[1], cz - pos[2]], np.float32)
+        d /= np.linalg.norm(d)
+        cams.append(Camera(pos=torch.tensor(pos, dtype=torch.float32, device=device),
+                           dir=torch.from_numpy(d).to(device)))
+    return cams
+
+
+def make_targets(scene, cams: List[Camera], res: int):
+    """Ground-truth views from the hard renderer, shadows off (the volumetric
+    model has no hard-shadow term): the fused march, which is the kernel on
+    the card. Returns (origins, dirs, rgb), each [views * res^2, 3]."""
+    rcfg = RenderConfig(width=res, height=res, enable_shadows=False)
+    origins, dirs, rgbs = [], [], []
+    for cam in cams:
+        d = ray_directions(cam, res, res)
+        col, _ = render_rays_fused(scene, cam.pos, d, rcfg)
+        origins.append(cam.pos[None, :].expand(d.shape))
+        dirs.append(d)
+        rgbs.append(col)
+    return torch.cat(origins), torch.cat(dirs), torch.cat(rgbs)
+
+
+def fit_world(scene, grid_shape, fcfg: FitConfig = FitConfig(), batch: int = 16384,
+              seed: int = 0, ckpt_path: Optional[str] = None, log_every: int = 20):
+    """Run the fit on ``scene``'s device; returns (params, losses)."""
+    if fcfg.engine != "fused":
+        raise NotImplementedError(
+            f"fit engine {fcfg.engine!r}: only 'fused' is ported; the XLA-step "
+            "engines wait for ROADMAP.md, 'Modules to port', item 10"
+        )
+    dev = scene.device
+    Sx, Sy, Sz = grid_shape
+    center = (Sx / 2, Sy / 3, Sz / 2)
+    cams = ring_cameras(center, radius=0.8 * Sx, height=0.9 * Sy, n=fcfg.views, device=dev)
+    origins, dirs, targets = make_targets(scene, cams, fcfg.resolution)
+    N = origins.shape[0]
+    print(f"fit: {fcfg.views} views, {N} target rays, {dev}")
+
+    params = shardlib.init_params(grid_shape, dev)
+    optimizer = torch.optim.Adam(params.parameters(), lr=fcfg.lr)
+    step_fn = None
+    guide = None
+    rng = np.random.default_rng(seed)
+    losses = []
+    for step in range(fcfg.steps):
+        if guide is None or step % fcfg.rethreshold_every == 0:
+            # occupancy re-thresholding: the guide tracks the evolving field
+            guide = shardlib.guide_scene_from_params(params, tau=fcfg.guide_tau)
+            if step_fn is None:
+                step_fn = shardlib.make_train_step_fused(
+                    params, optimizer, guide, num_steps=fcfg.guided_steps, shading=fcfg.shading)
+        idx = torch.from_numpy(rng.integers(0, N, batch)).to(dev)
+        loss, _ = step_fn(origins[idx], dirs[idx], targets[idx], guide=guide)
+        losses.append(float(loss))
+        if step % log_every == 0:
+            print(f"fit step {step}: loss {losses[-1]:.5f}")
+        if ckpt_path and step and step % 100 == 0:
+            checkpoint.save_fit(ckpt_path, params, optimizer, step)
+    if ckpt_path:
+        checkpoint.save_fit(ckpt_path, params, optimizer, fcfg.steps)
+    return params, losses

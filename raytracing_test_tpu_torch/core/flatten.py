@@ -28,8 +28,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from raytracing_test_tpu.core.color import u64_to_unit_f32
-from raytracing_test_tpu.core.tree import Palette
+from .color import u64_to_unit_f32
+from .tree import Palette
 
 MACRO_SHIFT = 2  # macro cells are 4^3 voxels
 
@@ -143,7 +143,7 @@ def scene_from_grid(grid: np.ndarray, pal: Palette, device) -> Scene:
 
 def scene_from_jax(fields: Dict[str, np.ndarray], device) -> Scene:
     """The reference Scene's arrays (``np.asarray`` of each field of
-    ``raytracing_test_tpu.core.flatten.Scene``) -> this package's Scene.
+    ``Scene`` in ``raytracing_test_tpu/core/flatten.py``) -> this package's Scene.
 
     Fields the port does not carry (``mat``, the brick fields) are ignored.
     """

@@ -1,14 +1,17 @@
 """Build the CUDA kernels in ``csrc/`` at first use and load them with ctypes.
 
 Counterpart of ``raytracing_test_tpu/kernels/support.py``: the reference
-probed whether Pallas compiles and fell back to interpret mode; here the
-kernels are compiled with ``nvcc`` into a shared library with a plain C
-interface, and a failed build raises. There is no interpreted fallback.
+probed whether Pallas compiles and fell back to interpret mode; here each
+``csrc/<name>.cu`` is compiled with ``nvcc`` into its own shared library with
+a plain C interface, and a failed build raises. There is no interpreted
+fallback.
 
-The library is keyed on a hash of the sources and the flags, and lands in
-``_build/`` beside this package (listed in ``.gitignore``). Only a library
-that built and loaded is cached (the reference's lesson: never cache a
-probe's failure, kernels/support.py).
+``library(name)`` builds one source on first use; ``build_all()`` starts one
+``nvcc`` per source, all at once, and loads them. A library is keyed on a
+hash of its source and the flags, and lands in ``_build/`` beside this
+package (listed in ``.gitignore``). Only a library that built and loaded is
+cached (the reference's lesson: never cache a probe's failure,
+kernels/support.py).
 """
 
 from __future__ import annotations
@@ -25,8 +28,8 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
-# -fmad=false: no a*b+c contraction, so the kernel's DDA arithmetic rounds
-# exactly like the plain PyTorch version (one rounding per operation).
+# -fmad=false: no a*b+c contraction, so the kernels' arithmetic rounds
+# exactly like the plain PyTorch versions (one rounding per operation).
 # IEEE division and square root stay on (no --use_fast_math).
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -34,8 +37,8 @@ NVCC_FLAGS = [
     "-fmad=false", "-Xptxas", "-v",
 ]
 
-_LIB = None
-BUILD_INFO = {}  # seconds, nvcc's resource report, library path
+_LIBS = {}  # name -> loaded ctypes.CDLL
+BUILD_INFO = {}  # name -> {seconds, nvcc_report, path}
 
 
 def _nvcc() -> str:
@@ -49,43 +52,73 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or CUDA_HOME): cannot build csrc/*.cu")
 
 
-def _sources():
+def sources():
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library; builds it on first call. Raises on failure."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    srcs = _sources()
+def _target(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    out = BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"
-    t0 = time.perf_counter()
-    if not out.exists():
-        nvcc = _nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp)] + [str(p) for p in srcs]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def _start(src: Path):
+    """Start nvcc on one source, or return None when its library is built."""
+    out = _target(src)
+    if out.exists():
+        return None
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return cmd, proc, tmp, out
+
+
+def _finish(name: str, job, t0: float) -> None:
+    if job is not None:
+        cmd, proc, tmp, out = job
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{stdout}\n{stderr}"
             )
         os.replace(tmp, out)
-        BUILD_INFO["nvcc_report"] = (res.stdout + res.stderr).strip()
-    lib = ctypes.CDLL(str(out))
-    _declare(lib)
-    BUILD_INFO["seconds"] = time.perf_counter() - t0
-    BUILD_INFO["path"] = str(out)
-    _LIB = lib
-    return lib
+        BUILD_INFO.setdefault(name, {})["nvcc_report"] = (stdout + stderr).strip()
+    path = _target(CSRC_DIR / f"{name}.cu")
+    lib = ctypes.CDLL(str(path))
+    _DECLARE[name](lib)
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    BUILD_INFO.setdefault(name, {}).update(seconds=time.perf_counter() - t0, path=str(path))
+    _LIBS[name] = lib
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``; builds it on first call.
+    Raises on failure."""
+    if name not in _LIBS:
+        t0 = time.perf_counter()
+        _finish(name, _start(CSRC_DIR / f"{name}.cu"), t0)
+    return _LIBS[name]
+
+
+def build_all() -> None:
+    """Build every ``csrc/*.cu`` at once (one nvcc process each) and load them."""
+    t0 = time.perf_counter()
+    jobs = {src.stem: _start(src) for src in sources() if src.stem not in _LIBS}
+    try:
+        for name, job in jobs.items():
+            _finish(name, job, t0)
+    finally:
+        for job in jobs.values():
+            if job is not None and job[1].poll() is None:
+                job[1].kill()
+                job[1].wait()
+
+
+def _declare_fused_march(lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fused_march_launch.argtypes = (
         [P, P, I]  # grid_enc, flags, n_flags
@@ -98,5 +131,24 @@ def _declare(lib: ctypes.CDLL) -> None:
         + [P]  # stream
     )
     lib.fused_march_launch.restype = ctypes.c_int
-    lib.kernel_error_string.argtypes = [ctypes.c_int]
-    lib.kernel_error_string.restype = ctypes.c_char_p
+
+
+def _declare_fused_window(lib: ctypes.CDLL) -> None:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    rays = (
+        [P, I, I, I]  # field, sx, sy, sz
+        + [P] * 4  # cell, tmax, istep, abs_delta
+        + [I] * 3  # n, S, shading
+        + [F] * 3  # sun x/y/z
+    )
+    lib.window_fwd_launch.argtypes = rays + [P] * 4 + [P]  # surf, t_end, w_sum, t_exp; stream
+    lib.window_fwd_launch.restype = ctypes.c_int
+    lib.window_bwd_launch.argtypes = (
+        rays + [P] * 4  # g_surf, g_tend, surf, t_end
+        + [P] * 3  # grad field, g_tmax, g_abs
+        + [P]  # stream
+    )
+    lib.window_bwd_launch.restype = ctypes.c_int
+
+
+_DECLARE = {"fused_march": _declare_fused_march, "fused_window": _declare_fused_window}

@@ -18,13 +18,12 @@ from typing import Dict
 
 import torch
 
-from raytracing_test_tpu.config import RenderConfig
-from raytracing_test_tpu.core.types import Properties
-
+from ..config import RenderConfig
 from ..core.flatten import Scene
+from ..core.types import Properties
 from ..render import fast
 from ..render.camera import Camera, ray_directions
-from ..render.renderer import _build_ray, _get, _March, shade
+from ..render.renderer import _build_ray, _f32, _get, _March, _norm3, shade
 
 LAUNCHES = 0  # kernel launches in this process (never incremented by the plain path)
 
@@ -38,7 +37,7 @@ def fused_march_plain(scene: Scene, s: _March, cfg: RenderConfig, time_s) -> Dic
     s, _ = fast.fast_march(scene, s, cfg, cfg.max_steps, shadow=False, time_s=time_s)
     shad = torch.zeros_like(raw0)
     if cfg.enable_shadows:
-        sun = torch.from_numpy(fast.sun_unit(cfg)).to(s.dir.device)
+        sun = torch.from_numpy(fast.sun_unit(cfg.sun_dir)).to(s.dir.device)
         facing = sun[s.last_axis.long()] * -_get(s.step, s.last_axis) > 0
         active = (s.mat != 0) & facing & ~s.reflected & ~raw0
         p = s.seg_origin + s.last_t[:, None] * s.dir
@@ -65,7 +64,7 @@ def _launch(scene: Scene, s: _March, cfg: RenderConfig, time_s) -> Dict[str, tor
     global LAUNCHES
     from . import build
 
-    lib = build.library()
+    lib = build.library("fused_march")
     dev = s.cell.device
     N = s.cell.shape[0]
     i32, f32 = torch.int32, torch.float32
@@ -93,7 +92,7 @@ def _launch(scene: Scene, s: _March, cfg: RenderConfig, time_s) -> Dict[str, tor
         "lt": torch.empty(N, dtype=f32, device=dev),
         "color_mod": torch.empty((N, 3), dtype=f32, device=dev),
     }
-    sun = fast.sun_unit(cfg)
+    sun = fast.sun_unit(cfg.sun_dir)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.fused_march_launch(
         scene.grid_enc.data_ptr(), scene.flags.data_ptr(), scene.flags.shape[0],
@@ -175,7 +174,7 @@ def shade_outputs(scene: Scene, o: Dict[str, torch.Tensor], cfg: RenderConfig):
         done=torch.ones(N, dtype=torch.bool, device=dev),
         steps=o["steps"],
     )
-    sun = torch.from_numpy(fast.sun_unit(cfg)).to(dev)
+    sun = torch.from_numpy(fast.sun_unit(cfg.sun_dir)).to(dev)
     shad = o["shad"]
     return shade(scene, state, raw0, mat0, sun, cfg,
                  lambda p, cell, la, step, active: shad & active)
@@ -186,3 +185,46 @@ def render_image_fused(scene: Scene, camera: Camera, cfg: RenderConfig, time_s=N
     dirs = ray_directions(camera, cfg.width, cfg.height, cfg.fov_degrees)
     col, _ = render_rays_fused(scene, camera.pos, dirs, cfg, time_s=time_s)
     return fast.crosshair(col.reshape(cfg.height, cfg.width, 3), cfg)
+
+
+def hit_seeds(scene: Scene, origin, dirs, cfg: RenderConfig, margin: float, start_t=None):
+    """Window seeds from one lean march: ``margin`` cells before each ray's
+    first solid hit, or the 1e6 sky sentinel (``render/diff.py`` MISS_SEED_MIN)."""
+    _, aux = render_rays_fused(scene, origin, dirs, cfg, start_t=start_t)
+    o = torch.as_tensor(origin, dtype=torch.float32, device=scene.device)
+    t_hit = _norm3(aux["hit_pos"] - (o if o.ndim == 2 else o[None, :]))
+    return torch.where(aux["hit"], torch.clamp(t_hit - margin, min=0.0), _f32(1e6, t_hit))
+
+
+def seed_depth_fused(scene: Scene, origin, dirs, image_hw, coarse_factor: int = 4,
+                     margin: float = 3.0, prox: bool = False, max_steps: int = None):
+    """Window-seed depths from the fused march (``seed_depth_fused``,
+    ``raytracing_test_tpu/kernels/fused_march.py:905``): a 1/coarse_factor
+    resolution lean march seeds a full-resolution lean march whose
+    first-solid depths, less ``margin``, become the window seeds (1e6 = sky).
+
+    ``prox`` (stop at the first surface-brick entry) needs the march kernel's
+    prox_stop mode, which is not ported yet (ROADMAP.md, queue item 5).
+    """
+    from ..render import progressive
+
+    if prox:
+        raise NotImplementedError(
+            "seed_depth_fused(prox=True): the march kernel's prox_stop mode is not "
+            "ported yet; see ROADMAP.md, 'Modules to port', item 5"
+        )
+    H, W = image_hw
+    cf = coarse_factor
+    dev = scene.device
+    origin = torch.as_tensor(origin, dtype=torch.float32, device=dev)
+    dirs = torch.as_tensor(dirs, dtype=torch.float32, device=dev)
+    if origin.ndim != 1:
+        raise ValueError("seed_depth_fused: camera images share one origin")
+    kw = {} if max_steps is None else {"max_steps": max_steps}
+    rc = RenderConfig(width=W // cf, height=H // cf,
+                      enable_materials=False, enable_shadows=False, **kw)
+    rn = RenderConfig(width=W, height=H, enable_materials=False, enable_shadows=False, **kw)
+    cdirs = dirs.reshape(H, W, 3)[cf // 2::cf, cf // 2::cf].reshape(-1, 3).contiguous()
+    depth = hit_seeds(scene, origin, cdirs, rc, margin=0.0)
+    st = progressive.seed_from_depth(depth.reshape(H // cf, W // cf), cf, H, W)
+    return hit_seeds(scene, origin, dirs, rn, margin=margin, start_t=st)

@@ -1,0 +1,135 @@
+"""The training step on the fused engines, on one device.
+
+Port of the single-device subset of ``raytracing_test_tpu/parallel/sharding.py``:
+the fit parameters (``FitParams`` :61, ``params_to_scene`` :68,
+``init_params`` :75), the occupancy guide (``guide_scene_from_params`` :89)
+and ``make_train_step_fused`` (:156): seed march on the guide (the lean
+fused march), the 24-step window render (the window kernel pair), MSE loss,
+backward and an Adam step. Data parallelism (the reference's ``shard_map`` +
+``pmean``) waits for ROADMAP.md, queue item 9.
+
+``params_from_jax`` and ``adam_state_from_optax`` carry weights and optimizer
+state across from the JAX package as numpy arrays (checkpoints, tests).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import RenderConfig
+from ..core.color import rgb_to_u64
+from ..core.flatten import Scene, scene_from_grid
+from ..core.tree import Palette
+from ..core.types import Block
+from ..kernels.fused_march import hit_seeds
+from ..kernels.fused_window import render_window_fused
+from ..render.diff import DiffScene
+
+
+class FitParams(nn.Module):
+    """Optimizable voxel fields: density through softplus for positivity."""
+
+    def __init__(self, density_raw: torch.Tensor, albedo_raw: torch.Tensor):
+        super().__init__()
+        self.density_raw = nn.Parameter(density_raw)  # f32 [Sx,Sy,Sz]; sigma = softplus(.)
+        self.albedo_raw = nn.Parameter(albedo_raw)  # f32 [Sx,Sy,Sz,3]; albedo = sigmoid(.)
+
+
+def params_to_scene(p: FitParams, density_scale: float = 25.0) -> DiffScene:
+    return DiffScene(
+        density=torch.nn.functional.softplus(p.density_raw) * density_scale,
+        albedo=torch.sigmoid(p.albedo_raw),
+    )
+
+
+def init_params(grid_shape, device="cpu") -> FitParams:
+    Sx, Sy, Sz = grid_shape
+    f32 = torch.float32
+    return FitParams(
+        density_raw=torch.full((Sx, Sy, Sz), -2.0, dtype=f32, device=device),
+        albedo_raw=torch.zeros((Sx, Sy, Sz, 3), dtype=f32, device=device),
+    )
+
+
+def params_from_jax(density_raw, albedo_raw, device="cpu") -> FitParams:
+    """FitParams from the JAX package's ``FitParams`` arrays (numpy)."""
+    put = lambda a: torch.from_numpy(np.array(a, np.float32, order="C")).to(device)
+    return FitParams(put(density_raw), put(albedo_raw))
+
+
+def adam_state_from_optax(count, mu, nu):
+    """``optax.adam``'s ``ScaleByAdamState`` (count, mu, nu; mu and nu as
+    (density, albedo) numpy pairs) -> per-parameter ``torch.optim.Adam`` state
+    in ``FitParams`` order. ``load_adam_state`` installs it."""
+    put = lambda a: torch.from_numpy(np.array(a, np.float32, order="C"))
+    return [
+        {"step": torch.tensor(float(count), dtype=torch.float32),
+         "exp_avg": put(m), "exp_avg_sq": put(v)}
+        for m, v in zip(mu, nu)
+    ]
+
+
+def load_adam_state(optimizer: torch.optim.Adam, params: FitParams, states) -> None:
+    """Install ``adam_state_from_optax`` state for ``params`` in ``optimizer``."""
+    for p, st in zip((params.density_raw, params.albedo_raw), states):
+        optimizer.state[p] = {
+            "step": st["step"].clone(),
+            "exp_avg": st["exp_avg"].to(p.device).clone(),
+            "exp_avg_sq": st["exp_avg_sq"].to(p.device).clone(),
+        }
+
+
+def adam_state_to_optax(optimizer: torch.optim.Adam, params: FitParams):
+    """Inverse of ``adam_state_from_optax``: (count, mu, nu) as numpy arrays;
+    a fresh optimizer gives count 0 and zero moments."""
+    ps = (params.density_raw, params.albedo_raw)
+    sts = [optimizer.state.get(p, {}) for p in ps]
+    count = int(sts[0]["step"]) if "step" in sts[0] else 0
+    zero = lambda p: np.zeros(tuple(p.shape), np.float32)
+    mu = tuple(st["exp_avg"].detach().cpu().numpy() if st else zero(p) for p, st in zip(ps, sts))
+    nu = tuple(st["exp_avg_sq"].detach().cpu().numpy() if st else zero(p) for p, st in zip(ps, sts))
+    return np.int32(count), mu, nu
+
+
+def guide_scene_from_params(params: FitParams, tau: float = 1.0,
+                            density_scale: float = 25.0) -> Scene:
+    """Threshold the evolving density field into an occupancy guide Scene
+    (fit-time occupancy re-thresholding): the seed march finds the current
+    surface estimate, the window samples around it. Pruning is one-way:
+    matter cannot re-emerge inside a region the guide has pruned."""
+    with torch.no_grad():
+        dens = (torch.nn.functional.softplus(params.density_raw) * density_scale).cpu().numpy()
+    occ = (dens > tau).astype(np.uint8)  # material id 1 where occupied
+    pal = Palette()
+    pal.id_for(Block(0, int(rgb_to_u64(255, 255, 255))))
+    return scene_from_grid(occ, pal, params.density_raw.device)
+
+
+def make_train_step_fused(params: FitParams, optimizer: torch.optim.Optimizer,
+                          guide_scene: Scene, num_steps: int = 24, shading: bool = False,
+                          shadow_steps: int = 0):
+    """One training step on the fused engines: ``train_step(origins, dirs,
+    targets, guide=None) -> (loss, aux)``. The seed march runs on ``guide``
+    (default ``guide_scene``), so re-thresholded guides swap in per call;
+    ``aux`` holds the reference's ``n_escaped`` (0) and ``grads_dropped``
+    (False)."""
+
+    def train_step(origins, dirs, targets, guide=None):
+        g = guide_scene if guide is None else guide
+        cfg = RenderConfig(width=1, height=dirs.shape[0], enable_materials=False,
+                           enable_shadows=False)
+        with torch.no_grad():
+            seed = hit_seeds(g, origins, dirs, cfg, margin=3.0)
+        optimizer.zero_grad(set_to_none=True)
+        rgb, waux = render_window_fused(
+            params_to_scene(params), origins, dirs, num_steps=num_steps, sky=False,
+            start_t=seed, shading=shading, shadow_steps=shadow_steps, return_aux=True)
+        loss = torch.mean((rgb - targets) ** 2)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), {"n_escaped": waux["n_escaped"],
+                               "grads_dropped": waux["grads_dropped"]}
+
+    return train_step

@@ -16,10 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raytracing_test_tpu.config import RenderConfig
-from raytracing_test_tpu.core.types import Properties
-
+from ..config import RenderConfig
 from ..core.flatten import Scene
+from ..core.types import Properties
 from .camera import Camera, ray_directions
 from .renderer import (
     IOR_WATER,
@@ -39,9 +38,10 @@ _MAX_JUMP = 512  # max crossings consumed per bulk advance
 _ITER_CAP = 2048  # loop guard; the step budgets end every march long before
 
 
-def sun_unit(cfg: RenderConfig) -> np.ndarray:
-    """cfg.sun_dir normalised in float32, as the reference computes it."""
-    s = np.asarray(cfg.sun_dir, np.float32)
+def sun_unit(sun_dir) -> np.ndarray:
+    """A sun direction (``RenderConfig.sun_dir``) normalised in float32, as the
+    reference computes it."""
+    s = np.asarray(sun_dir, np.float32)
     return s / np.sqrt(s[0] * s[0] + s[1] * s[1] + s[2] * s[2])
 
 
@@ -256,7 +256,7 @@ def render_rays_fast(scene: Scene, origin, dirs, cfg: RenderConfig, start_t=None
     N = dirs.shape[0]
     if time_s is None:
         time_s = cfg.time
-    sun = torch.from_numpy(sun_unit(cfg)).to(dev)
+    sun = torch.from_numpy(sun_unit(cfg.sun_dir)).to(dev)
 
     s = _init_state(origin, dirs, torch.ones(N, dtype=f32, device=dev), start_t=start_t)
     s, raw0, mat0 = start_cell(scene, s)

@@ -14,10 +14,9 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from raytracing_test_tpu.config import RenderConfig
-from raytracing_test_tpu.core.types import Properties
-
+from ..config import RenderConfig
 from ..core.flatten import Scene
+from ..core.types import Properties
 
 _EPS_DIR = 1e-12
 IOR_WATER = 1.1  # refractive index after the first refractive contact (frag:227)

@@ -43,7 +43,7 @@ def _read_png(path):
 
 
 def test_cli_render_matches_jax_session(tmp_path):
-    argv = ["--world", "48", "--width", "32", "--height", "32"]
+    argv = ["--device", "cpu", "--world", "48", "--width", "32", "--height", "32"]
     args = cli.build_parser().parse_args(argv + ["render"])
     view = cli.make_view(args)
     got = view.render(cli._rcfg(args)).numpy()
@@ -65,7 +65,7 @@ def test_cli_render_matches_jax_session(tmp_path):
 
 
 def test_cli_animate_writes_frames(tmp_path):
-    cli.main(["--world", "16", "--width", "8", "--height", "8", "--no-shadows",
+    cli.main(["--device", "cpu", "--world", "16", "--width", "8", "--height", "8", "--no-shadows",
               "animate", "--frames", "2", "--out-dir", str(tmp_path)])
     for i in range(2):
         assert _read_png(tmp_path / f"frame_{i:04d}.png").shape == (8, 8, 3)

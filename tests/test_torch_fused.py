@@ -8,6 +8,7 @@ runs it.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -104,27 +105,36 @@ def test_cuda_device_raises_without_a_card(terrain_world):
 
 
 def test_build_raises_without_nvcc_and_caches_nothing(monkeypatch, tmp_path):
-    monkeypatch.setattr(build, "_LIB", None)
+    monkeypatch.setattr(build, "_LIBS", {})
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     import torch.utils.cpp_extension as cpp_ext
 
     monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
+    for name in ("fused_march", "fused_window"):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            build.library(name)
     with pytest.raises(RuntimeError, match="nvcc"):
-        build.library()
-    assert build._LIB is None
+        build.build_all()
+    assert build._LIBS == {}
     assert not (tmp_path / "build").exists()
 
 
 def test_port_never_imports_jax():
+    """Importing every port module and chip_smoke.py, then rendering through the
+    CLI, loads neither JAX nor any module of the JAX package."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, os, pkgutil, sys\n"
         "import raytracing_test_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "assert len(mods) >= 10, mods\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.'))\n"
+        "from raytracing_test_tpu_torch.app import cli\n"
+        "cli.main(['--device', 'cpu', '--world', '16', '--width', '8', '--height', '8',\n"
+        "          'render', '--out', os.devnull])\n"
+        "assert len(mods) >= 20, mods\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'raytracing_test_tpu')\n"
+        "             or k.startswith(('jax.', 'raytracing_test_tpu.')))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -132,3 +142,17 @@ def test_port_never_imports_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_port_sources_never_name_the_jax_package():
+    """A static scan: no import of ``raytracing_test_tpu`` in the port's sources or
+    chip_smoke.py, function-local imports included."""
+    pat = re.compile(r"raytracing_test_tpu\.|from raytracing_test_tpu import|import raytracing_test_tpu\b(?!_)")
+    pkg = os.path.join(REPO, "raytracing_test_tpu_torch")
+    paths = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs if f.endswith((".py", ".cu"))
+    ]
+    assert len(paths) >= 20
+    found = [(p, i + 1, line.strip()) for p in paths
+             for i, line in enumerate(open(p).read().splitlines()) if pat.search(line)]
+    assert not found, found

@@ -1,0 +1,103 @@
+"""PyTorch port: its own copies of the JAX-free host modules against the
+JAX package's originals.
+
+The port imports nothing of ``raytracing_test_tpu``, so it carries copies of
+``config``, ``core.types`` / ``core.color`` / ``core.tree``, the 2D noise,
+``worldgen.terrain`` and ``app.picking``. They are numpy and Python in both
+packages, so worlds, palettes, noise and pick results must be equal exactly.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from raytracing_test_tpu import config as jconfig
+from raytracing_test_tpu.app import picking as jpicking
+from raytracing_test_tpu.core import color as jcolor
+from raytracing_test_tpu.worldgen import opensimplex as jnoise
+from raytracing_test_tpu.worldgen import terrain as jterrain
+from raytracing_test_tpu_torch import config as tconfig
+from raytracing_test_tpu_torch.app import picking as tpicking
+from raytracing_test_tpu_torch.core import color as tcolor
+from raytracing_test_tpu_torch.worldgen import opensimplex as tnoise
+from raytracing_test_tpu_torch.worldgen import terrain as tterrain
+
+WORLDS = {
+    "default": lambda cfg: cfg.WorldConfig(),
+    "size48": lambda cfg: cfg.world_for_size(48),
+}
+
+
+@pytest.mark.parametrize("world", sorted(WORLDS))
+def test_gen_world_grid_matches_jax(world):
+    tg, tpal = tterrain.gen_world_grid(WORLDS[world](tconfig))
+    jg, jpal = jterrain.gen_world_grid(WORLDS[world](jconfig))
+    assert tg.dtype == jg.dtype and tg.shape == jg.shape
+    np.testing.assert_array_equal(tg, jg)
+    assert len(tpal) == len(jpal)
+    for name in ("flags", "color", "metadata"):
+        np.testing.assert_array_equal(getattr(tpal, name), getattr(jpal, name), err_msg=name)
+    np.testing.assert_array_equal(tterrain.heightmap(WORLDS[world](tconfig)),
+                                  jterrain.heightmap(WORLDS[world](jconfig)))
+
+
+@pytest.mark.parametrize("cls", ["WorldConfig", "CameraConfig", "RenderConfig", "FitConfig"])
+def test_config_defaults_match_jax(cls):
+    assert dataclasses.asdict(getattr(tconfig, cls)()) == dataclasses.asdict(getattr(jconfig, cls)())
+
+
+@pytest.mark.parametrize("n", [16, 48, 200, 700])
+def test_world_for_size_matches_jax(n):
+    assert dataclasses.asdict(tconfig.world_for_size(n)) == dataclasses.asdict(jconfig.world_for_size(n))
+
+
+@pytest.mark.parametrize("seed", [42, 64, 100, -7])
+def test_noise_matches_jax(seed):
+    np.testing.assert_array_equal(tnoise.build_perm(seed), jnoise.build_perm(seed))
+    rng = np.random.default_rng(seed & 0xFFFF)
+    x, y = rng.uniform(-50, 50, (2, 300))
+    tn, jn = tnoise.OpenSimplex2D(seed), jnoise.OpenSimplex2D(seed)
+    np.testing.assert_array_equal(tn.eval_vec(x, y), jn.eval_vec(x, y))
+    assert tn.eval(1.5, -2.25) == jn.eval(1.5, -2.25)
+
+
+def test_color_packing_matches_jax():
+    rgb = np.random.default_rng(0).integers(0, 256, (50, 3))
+    for r, g, b in rgb:
+        assert tcolor.rgb_to_u64(r, g, b) == jcolor.rgb_to_u64(r, g, b)
+    packed = np.array([int(jcolor.rgb_to_u64(r, g, b)) for r, g, b in rgb], np.uint64)
+    np.testing.assert_array_equal(tcolor.u64_to_unit_f32(packed), jcolor.u64_to_unit_f32(packed))
+
+
+@pytest.fixture(scope="module")
+def trees():
+    tcfg, jcfg = tconfig.world_for_size(48), jconfig.world_for_size(48)
+    tg, tpal = tterrain.gen_world_grid(tcfg)
+    jg, jpal = jterrain.gen_world_grid(jcfg)
+    return (tterrain.gen_world_tree(tcfg, tg, tpal), jterrain.gen_world_tree(jcfg, jg, jpal),
+            (tg, tpal), (jg, jpal))
+
+
+def test_cast_ray_matches_jax(trees):
+    ttree, jtree, (tg, tpal), (jg, jpal) = trees
+    rng = np.random.default_rng(7)
+    origins = rng.uniform([2.0, 20.0, 2.0], [46.0, 60.0, 46.0], (200, 3))
+    dirs = rng.normal(size=(200, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    hits = 0
+    tgrid = tpicking.GridBlockSource(tg, tpal)
+    jgrid = jpicking.GridBlockSource(jg, jpal)
+    for o, d in zip(origins, dirs):
+        want = jpicking.cast_ray(jtree, o, d, 30)
+        assert tpicking.cast_ray(ttree, o, d, 30) == want
+        assert tpicking.cast_ray(tgrid, o, d, 30) == jpicking.cast_ray(jgrid, o, d, 30)
+        hits += want.steps > 0
+    assert 20 < hits < 200  # the rays both hit and miss
+
+
+def test_world_tree_matches_jax(trees):
+    ttree, jtree, _, _ = trees
+    for name in ("flags", "word", "aux_u32", "aux_f32", "children"):
+        np.testing.assert_array_equal(getattr(ttree, name), getattr(jtree, name), err_msg=name)
+    assert ttree.root == jtree.root
