@@ -34,17 +34,46 @@ Phases (any failure raises, and the script exits non-zero):
                 c. train: five make_train_step_fused steps on one fixed batch
                    of 16384 rays from make_targets: finite losses, the fifth
                    below the first, one window_fwd and one window_bwd per step;
-                d. cli: ``fit --steps 10`` at its defaults, in-process;
+                d. cli: ``fit --steps 10`` at its defaults, in-process,
+                   and the time of a guide rebuild (the fit's re-threshold)
+                   with the share of the brick fields it now builds;
                 e. timing: seed, window_fwd, window_bwd, the whole
                    loss+backward, rays/s, the plain versions' times and the
                    peak device memory of a train step. The kernels' launch
                    counts are reset just before c and read just after d.
+  8. bricks  -- the brick engine (kernels/brick_kernels.py, csrc/brick_march.cu)
+                on the default world at 1024x1024 from the bench camera:
+                a. kernel parity: brick_fine and brick_advance against
+                   brick_fine_plain and brick_advance_plain on the states of
+                   the first two rounds of the primary and the shadow march;
+                   integer fields equal, float fields equal to the bit;
+                b. frame parity: render_rays_bricks_pallas on the kernels
+                   against render_rays_fused on the fused kernel and against
+                   the plain brick path (render/bricks.py) on the card, in
+                   four configurations: full, lean, the water view at 1.2
+                   (reflected and refracted rays required) and the CLI's view
+                   at 512x512. Contract: assert_images_close, and mat equal
+                   on >= 99.9% of rays, cell and steps on >= 99.9% of the
+                   rays that hit (a sky ray ends where an exit rule first
+                   fires, which depends on the air boxes it crossed);
+                c. cli: ``render --mode bricks-pallas`` at its defaults,
+                   in-process; both launch counts are reset just before and
+                   must rise;
+                d. timing: per launch (CUDA events on the first round's
+                   advance input and the second round's fine input, kernel
+                   and plain version), per frame (rounds, glue passes and
+                   launches, primary and shadow; the per-lane loop caps
+                   checked), the brick frame against the fused frame and the
+                   plain brick frame, and one torch.profiler pass over the
+                   brick frame;
+                e. bounds of those two launches from their data.
 
 The line before the last holds the card's name and power limit, the one
 before it the per-kernel JSON (time, launches, plain time and the bound:
 the larger of the bytes the kernel must move over 3.35 TB/s and its float32
-operations over 67 TFLOP/s, the H100 SXM data-sheet peaks); the last line is
-the ok JSON.
+operations over 67 TFLOP/s, the H100 SXM data-sheet peaks; the brick
+kernels' times and bounds are per launch, on the inputs named in 8d); the
+last line is the ok JSON.
 """
 
 from __future__ import annotations
@@ -74,6 +103,12 @@ F32_OPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 MARCH_OPS_PER_CROSSING = 3  # two compares pick the axis, one add advances it
 WINDOW_FWD_OPS_PER_SAMPLE = 20  # enumerate 5, exp + composite 11, w_sum/t_exp 4
 WINDOW_BWD_OPS_PER_SAMPLE = 36  # enumerate 5, exp + weights 4, g_od 7, grads 8, pose 12
+BRICK_ADVANCE_OPS_PER_ITER = 20  # t_exit 6, argmin 2, two crossing counts 6, tmax update 6
+BRICK_FINE_OPS_PER_STEP = 3  # two compares pick the axis, one add advances it
+# march state bytes per ray (kernels/brick_kernels.py _state_args / _outputs)
+BRICK_STATE_IN = 65  # cell, tmax, step, abs_delta 48; mat, last_t, last_axis, steps 16; done 1
+BRICK_STATE_OUT = 41  # mat, cell, tmax, last_t, last_axis, steps, done
+STATE_FIELDS = ("mat", "cell", "tmax", "last_t", "last_axis", "steps", "done")
 
 
 def card_line() -> str:
@@ -215,9 +250,10 @@ def window_parity(fw, ds, cam, dirs, seed):
     return fwd_err, grad_err
 
 
-def profile_step(fn, card, steps: int = 5):
-    """Where a train step's time goes: torch.profiler over ``steps`` calls of
-    ``fn``; device busy time, idle share, kernels per step, the top kernels."""
+def profile_step(fn, card, steps: int = 5, label: str = "train step (loss+backward)"):
+    """Where a step's time goes: torch.profiler over ``steps`` calls of
+    ``fn``; device busy time, idle share, kernels per step, the top kernels.
+    Returns {kernel name: device microseconds of each launch}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -236,11 +272,12 @@ def profile_step(fn, card, steps: int = 5):
     busy = sum(sum(v) for v in per_name.values())
     launches = sum(len(v) for v in per_name.values())
     top = sorted(per_name.items(), key=lambda kv: -sum(kv[1]))[:6]
-    print(f"profile train step (loss+backward, {steps} steps): host {wall_us / steps / 1e3:.4f} ms, "
+    print(f"profile {label}, {steps} calls: host {wall_us / steps / 1e3:.4f} ms, "
           f"device busy {busy / steps / 1e3:.4f} ms, idle share {1 - busy / wall_us:.3f}, "
-          f"{launches / steps:.0f} device kernels per step | {card}")
+          f"{launches / steps:.0f} device kernels per call | {card}")
     for name, v in top:
-        print(f"  {sum(v) / steps / 1e3:.4f} ms/step x{len(v) // steps}: {name[:90]}")
+        print(f"  {sum(v) / steps / 1e3:.4f} ms/call x{len(v) / steps:.1f}: {name[:90]}")
+    return per_name
 
 
 def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
@@ -301,6 +338,22 @@ def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
           f"main-path launches {counts}, fused_march {march_launches}")
     if counts != {"window_fwd": 15, "window_bwd": 15}:
         raise AssertionError(f"train path launches {counts}, expected 15 each")
+    # what the brick fields add to a guide rebuild (the fit re-thresholds
+    # every rethreshold_every steps; scene_from_grid now builds them)
+    from raytracing_test_tpu_torch.config import FitConfig
+    from raytracing_test_tpu_torch.core.flatten import build_brick_fields
+
+    t0 = time.perf_counter()
+    guide = sharding.guide_scene_from_params(params)
+    torch.cuda.synchronize()
+    t_guide = time.perf_counter() - t0
+    with torch.no_grad():
+        occ = (torch.nn.functional.softplus(params.density_raw) * 25.0 > 1.0).to(torch.uint8)
+    occ = occ.cpu().numpy()
+    t0 = time.perf_counter()
+    build_brick_fields(occ, guide.flags.cpu().numpy())
+    print(f"guide rebuild (once per {FitConfig().rethreshold_every} fit steps): "
+          f"{t_guide:.3f} s, of which the brick fields {time.perf_counter() - t0:.3f} s (host)")
 
     # e. timing at the bench shapes (1024^2 rays x 24 steps)
     out = {"march_launches": march_launches}
@@ -361,6 +414,295 @@ def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
               f"({rows} field rows touched of {V}), {samples} samples -> {b[0]:.4f} ms ({b[1]}), "
               f"kernel at {b[0] / out[name]['ms']:.3f} of it")
     return out
+
+
+def state_parity(name, k, p, evt_k=None, evt_p=None) -> float:
+    """Kernel vs plain output states: integer fields equal, float fields
+    equal to the bit (and evt equal). Prints any difference and raises on
+    it; returns the largest float difference."""
+    err, bad = 0.0, []
+    for f in STATE_FIELDS:
+        a, b = getattr(k, f), getattr(p, f)
+        if a.is_floating_point():
+            same = a.view(torch.int32) == b.view(torch.int32)
+            err = max(err, float((a - b).abs().max()))
+        else:
+            same = a == b
+        n_bad = int((~same.reshape(a.shape[0], -1).all(dim=1)).sum())
+        if n_bad:
+            bad.append(f"{f} on {n_bad} lanes")
+    if evt_k is not None and not torch.equal(evt_k, evt_p):
+        bad.append(f"evt on {int((evt_k != evt_p).sum())} lanes")
+    extra = "" if evt_k is None else f", {int(evt_k.sum())} events"
+    print(f"parity {name}: {int((~p.done).sum())} lanes left{extra}, max_abs_err {err:.3e}, "
+          + ("all fields equal" if not bad else "DIFFER: " + "; ".join(bad)))
+    if bad:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def brick_kernel_parity(scene, s, rcfg, o_full):
+    """(a) Both brick kernels against their plain versions on the states of
+    the first two rounds of the primary march from ``s`` and of the shadow
+    march from the fused kernel's hits ``o_full``. Rounds move on with the
+    plain twins. Returns (max_abs_err, {(march, round): (fine input, blin,
+    advance input)})."""
+    from raytracing_test_tpu_torch.kernels import brick_kernels as bk
+    from raytracing_test_tpu_torch.render import bricks, fast
+    from raytracing_test_tpu_torch.render.renderer import _get
+
+    sun = torch.from_numpy(fast.sun_unit(rcfg.sun_dir)).to(s.cell.device)
+    s, raw0, _ = fast.start_cell(scene, s)
+    la = o_full["la"]
+    facing = sun[la.long()] * -_get(o_full["step"], la) > 0
+    active = (o_full["mat"] != 0) & facing & ~o_full["refl"] & ~raw0
+    p = o_full["seg_origin"] + o_full["lt"][:, None] * o_full["dir"]
+    shadow0 = bricks.shadow_start(scene, p, o_full["cell"], la, rcfg, sun, active)
+    err, inputs = 0.0, {}
+    for march, st, shadow in (("primary", s, False), ("shadow", shadow0, True)):
+        table = scene.brick_dist_shadow if shadow else scene.brick_dist
+        luts = bk._prop_luts(scene, shadow, rcfg.enable_materials)
+        budget = rcfg.shadow_steps if shadow else rcfg.max_steps
+        for r in (1, 2):
+            blin = bricks.occupied_brick(scene, table, st)
+            kf, ke = bk.brick_fine(scene, st, blin, luts, budget)
+            pf, pe = bk.brick_fine_plain(scene, st, blin, luts, budget)
+            err = max(err, state_parity(f"brick_fine {march} round {r}", kf, pf, ke, pe))
+            after_fine = bricks._fine_loop(scene, st, blin, rcfg, budget, shadow, 0.0)
+            ka = bk.brick_advance(scene, table, after_fine, budget)
+            pa = bk.brick_advance_plain(scene, table, after_fine, budget)
+            err = max(err, state_parity(f"brick_advance {march} round {r}", ka, pa))
+            inputs[(march, r)] = (st, blin, after_fine)
+            st = pa
+    torch.cuda.synchronize()
+    return err, inputs
+
+
+def brick_frame_parity(name, scene, pos, dirn, rcfg, time_s, card):
+    """(b) The brick frame on the kernels against the fused frame and the
+    plain brick frame on the card. Returns ({reference: max_abs_err}, aux,
+    ray directions)."""
+    from raytracing_test_tpu_torch.kernels import brick_kernels as bk
+    from raytracing_test_tpu_torch.kernels import fused_march as fm
+    from raytracing_test_tpu_torch.render import bricks
+    from raytracing_test_tpu_torch.render.camera import Camera, ray_directions
+
+    dev = scene.device
+    cam = Camera(pos=torch.tensor(pos, device=dev), dir=torch.tensor(dirn, device=dev))
+    dirs = ray_directions(cam, rcfg.width, rcfg.height)
+    cb, ab = bk.render_rays_bricks_pallas(scene, cam.pos, dirs, rcfg, time_s=time_s)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(cb).all() and cb.shape == (rcfg.width * rcfg.height, 3)):
+        raise AssertionError(f"bricks {name}: frame not finite or of the wrong shape")
+    errs = {}
+    for ref, (c, a) in (("fused", fm.render_rays_fused(scene, cam.pos, dirs, rcfg, time_s=time_s)),
+                        ("plain bricks", bricks.render_rays_bricks(scene, cam.pos, dirs, rcfg,
+                                                                   time_s=time_s))):
+        d = (cb - c).abs().max(dim=1).values
+        bad = float((d > ATOL).float().mean())
+        hit = a["mat"] != 0
+        eq = {"mat": ab["mat"] == a["mat"], "cell": (ab["cell"] == a["cell"]).all(dim=1),
+              "steps": ab["steps"] == a["steps"]}
+        frac = {k: float(v.float().mean()) for k, v in eq.items()}
+        frac_hit = {k: float(v[hit].float().mean()) if bool(hit.any()) else 1.0
+                    for k, v in eq.items()}
+        errs[ref] = float(d.max())
+        print(f"parity bricks {name} vs {ref}: max_abs_err {d.max():.3e} bad_frac {bad:.6f}; "
+              "equal on all rays " + " ".join(f"{k} {v:.6f}" for k, v in frac.items())
+              + "; on hit rays " + " ".join(f"{k} {v:.6f}" for k, v in frac_hit.items())
+              + f"; hit {float(hit.float().mean()):.4f}, rounds {ab['march_rounds']} | {card}")
+        if bad > MAX_BAD_FRAC or frac["mat"] < MIN_EQ_FRAC or min(frac_hit.values()) < MIN_EQ_FRAC:
+            raise AssertionError(f"bricks {name}: the brick frame disagrees with the {ref} frame")
+    return errs, ab, dirs
+
+
+def counted_brick_frame(scene, pos, dirn, rcfg):
+    """One brick frame on the kernels with counting hooks: rounds, glue
+    passes and launches, primary and shadow, and the most loop iterations
+    of any lane in any launch: for brick_advance its advancing iterations
+    (advance_iterations) + 1; for brick_fine the DDA steps the fine phase
+    took + 1, an upper bound (each iteration that does not end a lane's
+    loop takes one step)."""
+    from raytracing_test_tpu_torch.kernels import brick_kernels as bk
+    from raytracing_test_tpu_torch.render import bricks
+    from raytracing_test_tpu_torch.render.camera import Camera, ray_directions
+
+    dev = scene.device
+    st = {"adv_iter": 0, "fine_iter": 0, "fine_calls": [0, 0], "glue": [0, 0], "glue_max": 0,
+          "adv": [0, 0], "fine": [0, 0]}
+
+    def adv(sc, table, s, budget):
+        out = bk.brick_advance(sc, table, s, budget)
+        st["adv"][int(table is sc.brick_dist_shadow)] += 1
+        st["adv_iter"] = max(st["adv_iter"], int(advance_iterations(sc, table, s, budget).max()) + 1)
+        return out
+
+    def fine(sc, s, blin, cfg, budget, shadow, t):
+        n0 = bk.LAUNCHES_FINE
+        out = bk.fine_loop(sc, s, blin, cfg, budget, shadow, t)
+        n = bk.LAUNCHES_FINE - n0
+        st["fine"][int(shadow)] += n
+        st["fine_calls"][int(shadow)] += 1
+        st["glue"][int(shadow)] += n - 1
+        st["glue_max"] = max(st["glue_max"], n - 1)
+        st["fine_iter"] = max(st["fine_iter"], int((out.steps - s.steps).max()) + 1)
+        return out
+
+    cam = Camera(pos=torch.tensor(pos, device=dev), dir=torch.tensor(dirn, device=dev))
+    dirs = ray_directions(cam, rcfg.width, rcfg.height)
+    _, aux = bricks.render_rays_bricks(scene, cam.pos, dirs, rcfg, fine_loop=fine, brick_loop=adv)
+    torch.cuda.synchronize()
+    st["rounds"] = [aux["march_rounds"], st["fine_calls"][1]]
+    caps = {"advance iterations per lane": (st["adv_iter"], bricks._BRICK_CAP),
+            "fine iterations per lane": (st["fine_iter"], bricks._FINE_CAP),
+            "glue passes per fine phase": (st["glue_max"], bk._GLUE_CAP),
+            "rounds per march": (max(st["rounds"]), bricks._ROUND_CAP)}
+    for what, (got, cap) in caps.items():
+        if got >= cap:
+            raise AssertionError(f"a lane reached the cap on {what}: {got} of {cap}")
+    st["caps"] = caps
+    return st
+
+
+def advance_iterations(scene, table, s, budget):
+    """Advancing iterations of each lane in brick_advance on ``s``, counted
+    by the plain loop's march masks (kernel and plain version take the same
+    iterations, part a)."""
+    from raytracing_test_tpu_torch.render import bricks
+
+    count = torch.zeros_like(s.steps)
+    for _ in range(bricks._BRICK_CAP):
+        s, march = bricks._brick_step(scene, table, s, budget)
+        if not bool(march.any()):
+            break
+        count += march.to(count.dtype)
+    return count
+
+
+def bricks_phase(dev, card, side, scene, o_full, wscene, wpos, wdir, cli):
+    """Phase 8, the brick engine. Returns its two entries of the kernels line."""
+    from raytracing_test_tpu_torch.config import CameraConfig, RenderConfig
+    from raytracing_test_tpu_torch.kernels import brick_kernels as bk
+    from raytracing_test_tpu_torch.kernels import build
+    from raytracing_test_tpu_torch.kernels import fused_march as fm
+    from raytracing_test_tpu_torch.render import bricks
+    from raytracing_test_tpu_torch.render.camera import Camera, yaw_pitch_dir
+
+    n = side * side
+    full = RenderConfig(width=side, height=side)
+    lean = RenderConfig(width=side, height=side, enable_materials=False, enable_shadows=False)
+
+    # a. kernel parity on the first two rounds' states
+    kerr, inputs = brick_kernel_parity(scene, march_state(scene, BENCH_POS, BENCH_DIR, side),
+                                       full, o_full)
+
+    # b. frame parity, four configurations
+    errs = [brick_frame_parity("full", scene, BENCH_POS, BENCH_DIR, full, 0.0, card)[0],
+            brick_frame_parity("lean", scene, BENCH_POS, BENCH_DIR, lean, 0.0, card)[0]]
+    werr, wa, wdirs = brick_frame_parity("water", wscene, wpos, wdir, full, WATER_TIME, card)
+    errs.append(werr)
+    n_refl = int(wa["reflected"].sum())
+    n_refr = int(((wa["ray_dir"] != wdirs).any(dim=1) & ~wa["reflected"]).sum())
+    print(f"bricks water: {n_refl} reflected rays, {n_refr} refracted (bent) rays")
+    if n_refl == 0 or n_refr == 0:
+        raise AssertionError("bricks water view: expected reflected and refracted rays")
+    d = cli.build_parser().parse_args(["render"])
+    errs.append(brick_frame_parity("cli-view", scene, CameraConfig().pos,
+                                   yaw_pitch_dir(d.yaw, d.pitch),
+                                   RenderConfig(width=d.width, height=d.height), 0.0, card)[0])
+    # kernels against their plain versions: the launches of part a and the
+    # frames against the plain brick path (the fused frame is no plain version)
+    max_err = max([kerr] + [e["plain bricks"] for e in errs])
+    print(f"bricks: max_abs_err kernels vs plain versions {max_err:.3e}, brick frame vs fused "
+          f"frame {max(e['fused'] for e in errs):.3e} (near-ties) | {card}")
+
+    # c. the CLI's brick mode; only these launches are counted
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "bricks.png")
+        bk.LAUNCHES_ADVANCE = bk.LAUNCHES_FINE = 0
+        t0 = time.perf_counter()
+        cli.main(["--device", str(dev), "render", "--mode", "bricks-pallas", "--out", out])
+        torch.cuda.synchronize()
+        launches = {"brick_advance": bk.LAUNCHES_ADVANCE, "brick_fine": bk.LAUNCHES_FINE}
+        print(f"cli render --mode bricks-pallas: 512x512 in {time.perf_counter() - t0:.2f} s "
+              f"(world generation included), launches {launches} | {card}")
+        if min(launches.values()) == 0:
+            raise AssertionError(f"the brick mode did not launch both kernels: {launches}")
+        check_png(out, 512)
+
+    # d. timing: per frame (counted), per launch (CUDA events), whole frames
+    st = counted_brick_frame(scene, BENCH_POS, BENCH_DIR, full)
+    print(f"bricks frame {side}x{side} full: rounds primary {st['rounds'][0]} shadow "
+          f"{st['rounds'][1]}; glue passes primary {st['glue'][0]} shadow {st['glue'][1]}; "
+          f"brick_advance launches primary {st['adv'][0]} shadow {st['adv'][1]}; brick_fine "
+          f"launches primary {st['fine'][0]} shadow {st['fine'][1]}; caps (max seen, cap): "
+          + ", ".join(f"{k} {v[0]} of {v[1]}" for k, v in st["caps"].items()) + f" | {card}")
+    lib = build.library("brick_march")
+    s_adv = inputs[("primary", 1)][2]
+    s_fine, blin_fine, _ = inputs[("primary", 2)]
+    luts = bk._prop_luts(scene, False, True)
+    # raw launches on fixed inputs: no wrapper on the host between them
+    adv_args, *keep_a = bk._advance_args(scene, scene.brick_dist, s_adv, full.max_steps)
+    fine_args, *keep_f = bk._fine_args(scene, s_fine, blin_fine, luts, full.max_steps)
+    for fn, args in ((lib.brick_advance_launch, adv_args), (lib.brick_fine_launch, fine_args)):
+        if fn(*args) != 0:
+            raise AssertionError("a timing launch of a brick kernel failed")
+    adv_ms = cuda_ms(lambda: lib.brick_advance_launch(*adv_args), reps=20, warmup=3)
+    fine_ms = cuda_ms(lambda: lib.brick_fine_launch(*fine_args), reps=20, warmup=3)
+    adv_plain_ms = cuda_ms(lambda: bk.brick_advance_plain(scene, scene.brick_dist, s_adv,
+                                                          full.max_steps), reps=2, warmup=1)
+    fine_plain_ms = cuda_ms(lambda: bk.brick_fine_plain(scene, s_fine, blin_fine, luts,
+                                                        full.max_steps), reps=2, warmup=1)
+    print(f"timing brick_advance per launch (round 1, {n} lanes): kernel {adv_ms:.4f} ms, "
+          f"plain {adv_plain_ms:.3f} ms | {card}")
+    print(f"timing brick_fine per launch (round 2, {int((blin_fine >= 0).sum())} lanes in "
+          f"occupied bricks): kernel {fine_ms:.4f} ms, plain {fine_plain_ms:.3f} ms | {card}")
+    cam = Camera(pos=torch.tensor(BENCH_POS, device=dev), dir=torch.tensor(BENCH_DIR, device=dev))
+    frame = {}
+    for name, rcfg in (("full", full), ("lean", lean)):
+        frame[name] = (
+            cuda_ms(lambda: bk.render_image_bricks_pallas(scene, cam, rcfg, 0.0), reps=5, warmup=2),
+            cuda_ms(lambda: fm.render_image_fused(scene, cam, rcfg, 0.0), reps=10, warmup=2))
+    plain_frame_ms = cuda_ms(lambda: bricks.render_image_bricks(scene, cam, full, 0.0),
+                             reps=1, warmup=0)
+    for name, (b_ms, f_ms) in frame.items():
+        print(f"timing bricks frame {name} {side}x{side}: brick frame {b_ms:.4f} ms "
+              f"({n / b_ms * 1e3:.4e} rays/s), fused frame {f_ms:.4f} ms, ratio {b_ms / f_ms:.2f}"
+              + (f"; plain brick frame {plain_frame_ms:.1f} ms" if name == "full" else "")
+              + f" | {card}")
+    per_name = profile_step(lambda: bk.render_image_bricks_pallas(scene, cam, full, 0.0), card,
+                            steps=3, label=f"brick frame full {side}x{side}")
+    for k in ("brick_advance_kernel", "brick_fine_kernel"):
+        v = [t for name, ts in per_name.items() if k in name for t in ts]
+        print(f"  {k}: {len(v) / 3:.1f} launches and {sum(v) / 3e3:.4f} ms of device time per "
+              f"frame, {sum(v) / max(len(v), 1) / 1e3:.4f} ms per launch | {card}")
+
+    # e. bounds of the two timed launches, from their data
+    iters = int(advance_iterations(scene, scene.brick_dist, s_adv, full.max_steps).sum())
+    adv_bytes = n * (BRICK_STATE_IN + BRICK_STATE_OUT) + scene.brick_dist.numel()
+    adv_bound = bound(adv_bytes, iters * BRICK_ADVANCE_OPS_PER_ITER)
+    fine_out, _ = bk.brick_fine_plain(scene, s_fine, blin_fine, luts, full.max_steps)
+    fine_steps = int((fine_out.steps - s_fine.steps).sum())
+    rows = int(torch.unique(blin_fine[blin_fine >= 0]).numel())
+    fine_bytes = n * (BRICK_STATE_IN + BRICK_STATE_OUT + 4 + 1) + rows * 64 + luts.numel() * 4
+    fine_bound = bound(fine_bytes, fine_steps * BRICK_FINE_OPS_PER_STEP)
+    for name, nbytes, work, b, k_ms in (
+            ("brick_advance", adv_bytes, f"{iters} advancing iterations", adv_bound, adv_ms),
+            ("brick_fine", fine_bytes, f"{rows} brick rows, {fine_steps} DDA steps", fine_bound,
+             fine_ms)):
+        print(f"bound {name} per launch: {nbytes} bytes, {work} -> {b[0]:.4f} ms ({b[1]}), "
+              f"kernel at {b[0] / k_ms:.3f} of it | {card}")
+    del keep_a, keep_f
+    common = {"route": "cuda", "source": "raytracing_test_tpu_torch/csrc/brick_march.cu",
+              "max_abs_err": max_err, "library_ms": None}
+    return [
+        dict(name="brick_advance", replaces="raytracing_test_tpu/kernels/brick_kernels.py:100",
+             launches=launches["brick_advance"], ms=adv_ms, plain_ms=adv_plain_ms,
+             bound_ms=adv_bound[0], bound_by=adv_bound[1], **common),
+        dict(name="brick_fine", replaces="raytracing_test_tpu/kernels/brick_kernels.py:235",
+             launches=launches["brick_fine"], ms=fine_ms, plain_ms=fine_plain_ms,
+             bound_ms=fine_bound[0], bound_by=fine_bound[1], **common),
+    ]
 
 
 def check_png(path, side):
@@ -481,6 +823,9 @@ def run(dev: torch.device, side: int) -> int:
     train = train_phase(dev, card, side, grid, pal, scene, cli, fm, fw)
     launches = serve_launches + train["march_launches"]
 
+    # 8. the brick engine
+    brick_kernels = bricks_phase(dev, card, side, scene, o_full, wscene, wpos, wdir, cli)
+
     kernels = [{
         "name": "fused_march",
         "route": "cuda",
@@ -509,6 +854,7 @@ def run(dev: torch.device, side: int) -> int:
             "bound_by": k["bound"][1],
             "library_ms": None,
         })
+    kernels += brick_kernels
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,7 @@ def save_fit(path: str, params: FitParams, optimizer: torch.optim.Adam, step: in
     np.savez_compressed(path, **{f"leaf_{i}": l for i, l in enumerate(leaves)})
 
 
-def load_fit(path: str, device="cpu"):
+def load_fit(path: str, device="cuda"):
     """Load a checkpoint written by either package's ``save_fit`` ->
     (FitParams, Adam state for ``sharding.load_adam_state``, step)."""
     data = np.load(path)

@@ -5,14 +5,22 @@ Port of the ``render``, ``animate`` and ``fit`` verbs of
 ``--device`` (default ``cuda``; the tests pass ``--device cpu``). Each frame
 mirrors ``WorldSession.render``: pick the looked-at block on the host tree
 (``app/picking.cast_ray``), then draw through the fused march
-(``kernels/fused_march.render_image_fused``). ``fit`` runs
+(``kernels/fused_march.render_image_fused``), or with ``render --mode
+bricks`` / ``bricks-pallas`` through the brick engine
+(``kernels/brick_kernels.render_image_bricks_pallas``: its two kernels on
+the card, their plain versions on ``--device cpu``; the reference's
+XLA / Pallas split has no meaning on the card, and both names are kept so
+that a command line of the JAX package runs unchanged). ``fit`` runs
 ``app/fit.fit_world`` on the fused engine, the only one ported.
 
     python -m raytracing_test_tpu_torch.app.cli render --out frame.png
+    python -m raytracing_test_tpu_torch.app.cli render --mode bricks-pallas --out frame.png
     python -m raytracing_test_tpu_torch.app.cli animate --frames 8 --out-dir anim/
     python -m raytracing_test_tpu_torch.app.cli fit --steps 20
 
-``edit`` and ``probe`` are not ported yet (ROADMAP.md).
+``edit`` and ``probe``, and the render modes ``fast``, ``reference``,
+``progressive``, ``pallas``, ``spatial`` and ``handoff``, are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,10 +37,14 @@ import torch
 
 from ..config import CameraConfig, FitConfig, RenderConfig, world_for_size
 from ..core.flatten import Scene, scene_from_grid
+from ..kernels.brick_kernels import render_image_bricks_pallas
 from ..kernels.fused_march import render_image_fused
 from ..render.camera import Camera, yaw_pitch_dir
 from ..worldgen import terrain
 from . import picking
+
+RENDER_MODES = ("fused", "bricks", "bricks-pallas")
+UNPORTED_MODES = ("fast", "reference", "progressive", "pallas", "spatial", "handoff")
 
 
 def write_png(img: np.ndarray, path: str) -> None:
@@ -83,8 +95,9 @@ class View:
         if self.yaw < -180:
             self.yaw += 360
 
-    def render(self, rcfg: RenderConfig) -> torch.Tensor:
-        """One frame: pick for the looked-at highlight, then draw."""
+    def render(self, rcfg: RenderConfig, mode: str = "fused") -> torch.Tensor:
+        """One frame: pick for the looked-at highlight, then draw with the
+        fused march or (``bricks``, ``bricks-pallas``) the brick engine."""
         res = picking.cast_ray(self.tree, self.pos, self.camera_dir(), 30)
         if res.steps:
             rcfg = replace(rcfg, looking_at=res.pos)
@@ -94,7 +107,11 @@ class View:
             pos=torch.as_tensor(self.pos, dtype=torch.float32, device=dev),
             dir=torch.as_tensor(self.camera_dir(), dtype=torch.float32, device=dev),
         )
-        return render_image_fused(self.scene, cam, rcfg, time_s=rcfg.time)
+        if mode == "fused":
+            return render_image_fused(self.scene, cam, rcfg, time_s=rcfg.time)
+        if mode in ("bricks", "bricks-pallas"):
+            return render_image_bricks_pallas(self.scene, cam, rcfg, time_s=rcfg.time)
+        raise ValueError(f"unknown render mode {mode!r}")
 
 
 def make_view(args) -> View:
@@ -121,7 +138,7 @@ def _rcfg(args) -> RenderConfig:
 
 def cmd_render(args) -> None:
     v = make_view(args)
-    img = v.render(_rcfg(args))
+    img = v.render(_rcfg(args), args.mode)
     write_png(img.cpu().numpy(), args.out)
     print(f"wrote {args.out}")
 
@@ -162,6 +179,16 @@ def cmd_fit(args) -> None:
     print(f"fit done: loss {losses[0]:.5f} -> {losses[-1]:.5f}")
 
 
+def _render_mode(value: str) -> str:
+    if value in RENDER_MODES:
+        return value
+    if value in UNPORTED_MODES:
+        raise argparse.ArgumentTypeError(
+            f"render mode {value!r} is not ported yet; see ROADMAP.md, 'Modules to port'")
+    raise argparse.ArgumentTypeError(
+        f"unknown render mode {value!r} (choose from {', '.join(RENDER_MODES)})")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="raytracing_test_tpu_torch")
     p.add_argument("--device", default="cuda", help="torch device: cuda[:n] (default) or cpu")
@@ -177,6 +204,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     r = sub.add_parser("render")
     r.add_argument("--out", default="frame.png")
+    r.add_argument("--mode", type=_render_mode, default="fused",
+                   help=f"render path: {', '.join(RENDER_MODES)} (bricks and bricks-pallas "
+                   "both run the brick kernels on the card)")
     r.set_defaults(fn=cmd_render)
 
     a = sub.add_parser("animate")

@@ -24,7 +24,7 @@ from ..render.camera import Camera, ray_directions
 from . import checkpoint
 
 
-def ring_cameras(center, radius: float, height: float, n: int, device="cpu") -> List[Camera]:
+def ring_cameras(center, radius: float, height: float, n: int, device="cuda") -> List[Camera]:
     """n cameras on a ring looking at ``center``."""
     cams = []
     cx, cy, cz = center

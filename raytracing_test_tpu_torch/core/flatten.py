@@ -15,23 +15,34 @@ The scene carries what the march and shading read:
   - palette tables ``albedo`` f32[P, 3], ``flags`` i32[P], ``metadata`` f32[P].
   - ``macro``: occupancy of 4^3 cells (u8), kept for parity with the
     reference scene.
+  - the brick fields of the brick path (render/bricks.py,
+    kernels/brick_kernels.py): ``brick_mat`` u8 [NB, bs^3], the voxel rows
+    of each brick; ``brick_dist`` u8 [Bx, By, Bz], the exact Chebyshev
+    distance in bricks to the nearest brick with a solid voxel, capped at
+    ``BRICK_DIST_CAP`` (0 = this brick holds solids, d >= 1 licenses an
+    all-air box of radius d - 1 bricks); ``brick_dist_shadow``, the same with
+    bricks that hold only LIQUID counted as air (shadow rays skip LIQUID).
 
-The reference's brick fields (``brick_mat``, ``brick_nib*``) serve only its
-brick path and are not carried.
+The reference packs the two distance fields as f32 one-hot tables of nibble
+pairs (``brick_nib``, ``brick_nib_shadow``) only so that its TPU matrix unit
+can look them up (``ops/mxu_lookup.py:68-126``); on the card one u8 load
+does that job, so the port keeps them as plain u8 arrays.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, fields as dc_fields
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .color import u64_to_unit_f32
 from .tree import Palette
+from .types import Properties
 
 MACRO_SHIFT = 2  # macro cells are 4^3 voxels
+BRICK_DIST_CAP = 8  # max brick-level Chebyshev distance (licence <= 7 bricks)
 
 
 @dataclass(frozen=True)
@@ -44,10 +55,26 @@ class Scene:
     flags: torch.Tensor  # i32 [P] property bitfields (leaf bit included)
     metadata: torch.Tensor  # f32 [P]
     y_max: int  # max solid y + 1
+    # brick path only (None on scenes that never render with bricks)
+    brick_mat: Optional[torch.Tensor] = None  # u8 [NB, bs^3] voxel rows,
+    # vox (dx*bs + dy)*bs + dz, brick lin (bx*By + by)*Bz + bz
+    brick_dist: Optional[torch.Tensor] = None  # u8 [Bx, By, Bz]
+    brick_dist_shadow: Optional[torch.Tensor] = None  # u8 [Bx, By, Bz], LIQUID as air
 
     @property
     def shape3(self) -> Tuple[int, int, int]:
         return tuple(self.grid_enc.shape)
+
+    @property
+    def brick_shift(self) -> int:
+        """log2 of the brick edge, from the width of a ``brick_mat`` row."""
+        return {64: 2, 512: 3, 4096: 4}[self.brick_mat.shape[1]]
+
+    @property
+    def brick_grid(self) -> Tuple[int, int, int]:
+        s = self.brick_shift
+        Sx, Sy, Sz = self.shape3
+        return Sx >> s, Sy >> s, Sz >> s
 
     @property
     def device(self) -> torch.device:
@@ -122,6 +149,69 @@ def build_grid_enc(grid: np.ndarray) -> np.ndarray:
     return enc
 
 
+def chebyshev_distance_field(occupied: np.ndarray, cap: int = 15) -> np.ndarray:
+    """L-inf distance (in cells) to the nearest occupied cell, capped.
+
+    Copy of ``raytracing_test_tpu/ops/mxu_lookup.py:135``, arithmetic
+    unchanged. occupied: bool [X, Y, Z]; returns uint8 with 0 = occupied.
+    Distance d >= 1 certifies that every cell within Chebyshev radius d-1 is
+    empty.
+    """
+    occ = np.asarray(occupied, bool)
+    dist = np.where(occ, 0, cap).astype(np.uint8)
+    cur = occ.copy()
+    for d in range(1, cap):
+        # one Chebyshev dilation = 3^3 max-pool; separable as composed
+        # per-axis +/-1 shift-ORs (each axis applied to the running result)
+        nxt = cur.copy()
+        for ax in range(3):
+            sl = [slice(None)] * 3
+            sr = [slice(None)] * 3
+            sl[ax] = slice(1, None)
+            sr[ax] = slice(None, -1)
+            grown = nxt.copy()
+            grown[tuple(sl)] |= nxt[tuple(sr)]
+            grown[tuple(sr)] |= nxt[tuple(sl)]
+            nxt = grown
+        newly = nxt & ~cur
+        dist[newly] = d
+        cur = nxt
+        if cur.all():
+            break
+    return dist
+
+
+def pick_brick_shift(shape) -> int:
+    """Smallest brick edge 2^s in {4, 8, 16} keeping the brick count within
+    2^18 (the reference's lookup-table budget, kept so both packages pick the
+    same bricks)."""
+    for s in (2, 3, 4):
+        nb = (shape[0] >> s) * (shape[1] >> s) * (shape[2] >> s)
+        if nb <= (1 << 18) and all(d % (1 << s) == 0 for d in shape):
+            return s
+    raise ValueError(f"no brick decomposition for grid shape {shape}")
+
+
+def brick_rows(grid: np.ndarray, s: int) -> np.ndarray:
+    """Dense grid -> per-brick voxel rows u8[NB, (2^s)^3] (vox (dx*bs+dy)*bs+dz)."""
+    bs = 1 << s
+    Sx, Sy, Sz = grid.shape
+    g = grid.reshape(Sx >> s, bs, Sy >> s, bs, Sz >> s, bs)
+    return np.ascontiguousarray(g.transpose(0, 2, 4, 1, 3, 5)).reshape(-1, bs**3)
+
+
+def build_brick_fields(grid: np.ndarray, flags: np.ndarray):
+    """(brick_mat, brick_dist, brick_dist_shadow) numpy arrays."""
+    s = pick_brick_shift(grid.shape)
+    rows = brick_rows(grid, s)
+    bgrid = tuple(d >> s for d in grid.shape)
+    occ = (rows > 0).any(axis=1).reshape(bgrid)
+    dist = chebyshev_distance_field(occ, cap=BRICK_DIST_CAP)
+    liquid_ids = (np.asarray(flags) & int(Properties.LIQUID)) > 0
+    occ_hard = ((rows > 0) & ~liquid_ids[rows]).any(axis=1).reshape(bgrid)
+    return rows, dist, chebyshev_distance_field(occ_hard, cap=BRICK_DIST_CAP)
+
+
 def world_y_max(grid: np.ndarray) -> int:
     solid_y = np.nonzero(grid.any(axis=(0, 2)))[0]
     return int(solid_y.max()) + 1 if len(solid_y) else 0
@@ -131,6 +221,7 @@ def scene_from_grid(grid: np.ndarray, pal: Palette, device) -> Scene:
     """Build the render Scene on ``device`` from a dense material grid + palette."""
     albedo, flags, meta = palette_arrays(pal)
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    b_mat, b_dist, b_dist_sh = build_brick_fields(grid, flags)
     return Scene(
         grid_enc=put(build_grid_enc(grid)),
         macro=put(build_macro(grid)),
@@ -138,21 +229,44 @@ def scene_from_grid(grid: np.ndarray, pal: Palette, device) -> Scene:
         flags=put(flags),
         metadata=put(meta),
         y_max=world_y_max(grid),
+        brick_mat=put(b_mat),
+        brick_dist=put(b_dist),
+        brick_dist_shadow=put(b_dist_sh),
     )
+
+
+def _nibbles_from_table(table: np.ndarray, n: int) -> np.ndarray:
+    """The first ``n`` values packed in a reference nibble table: byte i sits
+    at [i // B, i % B] of the f32 [A, B] table (``pack_bytes_rect``), and
+    value i is bits 4*(i&1).. of byte i >> 1 (``pack_nibble_pairs``)."""
+    b = np.asarray(table).reshape(-1).astype(np.uint8)
+    return np.stack([b & 0xF, b >> 4], axis=1).reshape(-1)[:n]
 
 
 def scene_from_jax(fields: Dict[str, np.ndarray], device) -> Scene:
     """The reference Scene's arrays (``np.asarray`` of each field of
     ``Scene`` in ``raytracing_test_tpu/core/flatten.py``) -> this package's Scene.
 
-    Fields the port does not carry (``mat``, the brick fields) are ignored.
+    ``mat`` and ``brick_nib`` are not carried; ``brick_dist_shadow`` is
+    decoded from ``brick_nib_shadow``. A reference Scene without brick
+    fields gives a Scene without them.
     """
-    put = lambda k: torch.from_numpy(np.array(fields[k], order="C")).to(device)
+    put = lambda a: torch.from_numpy(np.array(a, order="C")).to(device)
+    bricks = {}
+    if fields.get("brick_mat") is not None:
+        dist = np.asarray(fields["brick_dist"])
+        bricks = dict(
+            brick_mat=put(fields["brick_mat"]),
+            brick_dist=put(dist),
+            brick_dist_shadow=put(
+                _nibbles_from_table(fields["brick_nib_shadow"], dist.size).reshape(dist.shape)),
+        )
     return Scene(
-        grid_enc=put("grid_enc"),
-        macro=put("macro"),
-        albedo=put("albedo"),
-        flags=put("flags"),
-        metadata=put("metadata"),
+        grid_enc=put(fields["grid_enc"]),
+        macro=put(fields["macro"]),
+        albedo=put(fields["albedo"]),
+        flags=put(fields["flags"]),
+        metadata=put(fields["metadata"]),
         y_max=int(fields["y_max"]),
+        **bricks,
     )

@@ -1,0 +1,319 @@
+// brick_march.cu: the two kernels of the brick engine, one thread per ray,
+// for NVIDIA Hopper (sm_90a).
+//
+//   brick_advance replaces raytracing_test_tpu/kernels/brick_kernels.py:_brick_kernel
+//     (Pallas, :100): the brick phase of one round. Each iteration reads the
+//     brick-level Chebyshev distance with one u8 load of brick_dist (or
+//     brick_dist_shadow) and crosses the certified all-air box of radius
+//     d - 1 bricks (or the slab outside the window) in closed form.
+//   brick_fine replaces _fine_kernel (:235): single DDA steps inside the
+//     occupied brick blin, the voxel read from its brick_mat row, until a hit,
+//     a material event (a reflect or refract block), leaving the brick or the
+//     budget. It applies no material step: the PyTorch glue in
+//     kernels/brick_kernels.py does, and launches it again.
+//
+// Their plain PyTorch versions are brick_advance_plain (render/bricks.py
+// _brick_loop) and brick_fine_plain in raytracing_test_tpu_torch/kernels/
+// brick_kernels.py, which the wrapper runs for CPU tensors.
+//
+// What the TPU kernels did only because of the TPU is dropped: the MXU one-hot
+// lookup of a bf16 table of nibble pairs (_nib_lookup_kernel, _USE_2D_DOT),
+// the 16 i32 word planes of the fetched brick row with their 16-way select,
+// the (32, 128) ray tiles and their padding, done carried as i32, the
+// three-step unroll that spared a cross-lane any(), and the SMEM scalar
+// packing. The loop caps of the TPU (per tile) are caps per lane here; the
+// step budgets end every lane long before them: each brick iteration that
+// advances adds at least one step, and a 4^3 brick holds at most ten cells
+// of a ray.
+//
+// What bounds it on this card: dependent loads per ray, a 131 KB distance
+// table and the 64-byte voxel rows of the bricks a ray meets, all resident
+// in L2 (brick_mat is 8.4 MB for the default world), plus warp divergence
+// between rays that settle in one iteration and rays that take many. Each
+// launch reads and writes the march state once (about 100 bytes per ray);
+// the host loop around the two kernels (one launch each per round, a sync
+// per round and per glue pass) costs more than the kernels at 1024^2.
+// Fusing the rounds and the glue into one launch is later work.
+//
+// Arithmetic: built with -fmad=false and IEEE division, every operation
+// rounds once, in the order of the PyTorch version, so DDA near-ties
+// resolve identically. The box crossing and the axis tie-break are the
+// fused march's (dda.cuh).
+//
+// The per-ray code is plain C++ behind RT_DEV so that a host build of this
+// file (without __CUDACC__) can exercise the same logic.
+
+#include "dda.cuh"
+
+namespace rb {
+
+constexpr int kBrickCap = 512;   // loop guard per lane (render/bricks.py _BRICK_CAP)
+constexpr int kFineCap = 64;     // loop guard per lane (render/bricks.py _FINE_CAP)
+
+// The march state of render/renderer.py:_March that the kernels read.
+struct State {
+  const int32_t* cell;   // [n, 3]
+  const float* tmax;     // [n, 3]
+  const float* step;     // [n, 3], +-1
+  const float* abs_delta;  // [n, 3]
+  const int32_t* mat;    // [n]
+  const uint8_t* done;   // [n], torch.bool
+  const float* lt;       // [n] last_t
+  const int32_t* la;     // [n] last_axis
+  const int32_t* steps;  // [n]
+};
+
+// The fields they write (kernels/brick_kernels.py allocates them).
+struct Out {
+  int32_t* mat;
+  int32_t* cell;
+  float* tmax;
+  float* lt;
+  int32_t* la;
+  int32_t* steps;
+  uint8_t* done;
+};
+
+struct Grid {
+  int sx, sy, sz;  // window shape
+  int shift;       // log2 of the brick edge
+  int by, bz;      // bricks along y and z
+};
+
+// A lane of the march: its DDA state, the material at its cell, done.
+struct Lane : rt::Dda {
+  int mat;
+  bool done;
+};
+
+RT_DEV void load(const State& S, int i, Lane& r) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    r.c[k] = S.cell[3 * i + k];
+    r.t[k] = S.tmax[3 * i + k];
+    r.s[k] = S.step[3 * i + k];
+    r.a[k] = S.abs_delta[3 * i + k];
+  }
+  r.mat = S.mat[i];
+  r.done = S.done[i] != 0;
+  r.lt = S.lt[i];
+  r.la = S.la[i];
+  r.steps = S.steps[i];
+}
+
+RT_DEV void store(const Out& O, int i, const Lane& r) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    O.cell[3 * i + k] = r.c[k];
+    O.tmax[3 * i + k] = r.t[k];
+  }
+  O.mat[i] = r.mat;
+  O.done[i] = r.done ? 1 : 0;
+  O.lt[i] = r.lt;
+  O.la[i] = r.la;
+  O.steps[i] = r.steps;
+}
+
+RT_DEV int brick_lin(const Grid& G, int wx, int wy, int wz) {
+  const int sh = G.shift;
+  return ((wx >> sh) * G.by + (wy >> sh)) * G.bz + (wz >> sh);
+}
+
+// The brick phase of one lane (render/bricks.py:_brick_step, repeated): runs
+// until an iteration in which the lane does not advance.
+RT_DEV void advance_lane(const uint8_t* dist, const Grid& G, int y_max, int budget, Lane& r) {
+  const int S[3] = {G.sx, G.sy, G.sz};
+  for (int it = 0; it < kBrickCap; ++it) {
+    const int w[3] = {r.c[0] & 1023, r.c[1] & 1023, r.c[2] & 1023};
+    const bool in_w = w[0] < G.sx && w[1] < G.sy && w[2] < G.sz;
+    const int d = in_w ? (int)RT_LDG(dist + brick_lin(G, w[0], w[1], w[2])) : 1;
+    const bool occupied = in_w && d == 0;
+
+    // exit rules (moving away outside the window, sky above y_max)
+    bool inside = true, away = false, op[3], on[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      op[k] = r.c[k] >= S[k];
+      on[k] = r.c[k] < 0;
+      inside = inside && !(op[k] || on[k]);
+      away = away || (op[k] && r.s[k] > 0.0f) || (on[k] && r.s[k] < 0.0f);
+    }
+    const bool sky = r.c[1] > y_max && r.s[1] > 0.0f;
+    // an active lane in air (or leaving) stands in an air cell: mat 0
+    if (!r.done && (!occupied || away || sky)) r.mat = 0;
+    if (!r.done && (away || sky)) r.done = true;
+    if (r.done || occupied) break;
+
+    // the empty box, brick-aligned, inside the window; the slab outside it
+    const int rad = d - 1 > 0 ? d - 1 : 0;
+    const int bs = 1 << G.shift;
+    int lo[3], hi[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int bc = w[k] >> G.shift;
+      lo[k] = inside ? (bc - rad) * bs : (op[k] ? S[k] : -rt::kBig);
+      hi[k] = inside ? (bc + rad + 1) * bs - 1 : (on[k] ? -1 : rt::kBig);
+    }
+    rt::aabb_advance(r, lo, hi);
+    if (r.steps >= budget) r.done = true;  // budget freeze
+  }
+}
+
+RT_DEV bool mask_bit(const uint32_t w[4], int m) {
+  const int q = (m >> 5) < 3 ? (m >> 5) : 3;
+  const uint32_t word = q == 0 ? w[0] : (q == 1 ? w[1] : (q == 2 ? w[2] : w[3]));
+  return ((word >> (m & 31)) & 1u) != 0;
+}
+
+// The fine phase of one lane inside brick blin. Returns the event flag.
+RT_DEV bool fine_lane(const uint8_t* bmat, const uint32_t hit[4], const uint32_t evt[4],
+                      const Grid& G, int budget, int blin, Lane& r) {
+  if (blin < 0) return false;
+  const int sh = G.shift;
+  const int msk = (1 << sh) - 1;
+  const uint8_t* row = bmat + ((size_t)blin << (3 * sh));
+  for (int it = 0; it < kFineCap; ++it) {
+    const int wx = r.c[0] & 1023, wy = r.c[1] & 1023, wz = r.c[2] & 1023;
+    const bool in_w = wx < G.sx && wy < G.sy && wz < G.sz;
+    if (r.done || !in_w || brick_lin(G, wx, wy, wz) != blin) break;
+    const int vox = ((((wx & msk) << sh) | (wy & msk)) << sh) | (wz & msk);
+    const int m = (int)RT_LDG(row + vox);
+    r.mat = m;
+    if (m != 0 && mask_bit(hit, m)) {
+      r.done = true;
+      break;
+    }
+    if (m != 0 && mask_bit(evt, m)) return true;
+    // one DDA step
+    const int ax = rt::argmin_axis(r.t[0], r.t[1], r.t[2]);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (k == ax) {
+        r.lt = r.t[k];
+        r.c[k] += r.s[k] > 0.0f ? 1 : -1;
+        r.t[k] = r.t[k] + r.a[k];
+      }
+    }
+    r.la = ax;
+    r.steps += 1;
+    if (r.steps >= budget) r.done = true;
+  }
+  return false;
+}
+
+}  // namespace rb
+
+#ifdef __CUDACC__
+
+constexpr int kThreads = 128;
+
+__global__ void __launch_bounds__(kThreads)
+brick_advance_kernel(rb::State S, rb::Out O, const uint8_t* __restrict__ dist, rb::Grid G,
+                     int y_max, int budget, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  rb::Lane r;
+  rb::load(S, i, r);
+  rb::advance_lane(dist, G, y_max, budget, r);
+  rb::store(O, i, r);
+}
+
+__global__ void __launch_bounds__(kThreads)
+brick_fine_kernel(rb::State S, rb::Out O, uint8_t* __restrict__ o_evt,
+                  const uint8_t* __restrict__ bmat, const int32_t* __restrict__ luts,
+                  const int32_t* __restrict__ blin, rb::Grid G, int budget, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t hit[4], evt[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    hit[k] = (uint32_t)__ldg(luts + k);
+    evt[k] = (uint32_t)__ldg(luts + 4 + k);
+  }
+  rb::Lane r;
+  rb::load(S, i, r);
+  const bool ev = rb::fine_lane(bmat, hit, evt, G, budget, blin[i], r);
+  rb::store(O, i, r);
+  o_evt[i] = ev ? 1 : 0;
+}
+
+namespace {
+
+rb::State state_of(const void* cell, const void* tmax, const void* step, const void* abs_delta,
+                   const void* mat, const void* done, const void* lt, const void* la,
+                   const void* steps) {
+  rb::State S;
+  S.cell = static_cast<const int32_t*>(cell);
+  S.tmax = static_cast<const float*>(tmax);
+  S.step = static_cast<const float*>(step);
+  S.abs_delta = static_cast<const float*>(abs_delta);
+  S.mat = static_cast<const int32_t*>(mat);
+  S.done = static_cast<const uint8_t*>(done);
+  S.lt = static_cast<const float*>(lt);
+  S.la = static_cast<const int32_t*>(la);
+  S.steps = static_cast<const int32_t*>(steps);
+  return S;
+}
+
+rb::Out out_of(void* mat, void* cell, void* tmax, void* lt, void* la, void* steps, void* done) {
+  rb::Out O;
+  O.mat = static_cast<int32_t*>(mat);
+  O.cell = static_cast<int32_t*>(cell);
+  O.tmax = static_cast<float*>(tmax);
+  O.lt = static_cast<float*>(lt);
+  O.la = static_cast<int32_t*>(la);
+  O.steps = static_cast<int32_t*>(steps);
+  O.done = static_cast<uint8_t*>(done);
+  return O;
+}
+
+rb::Grid grid_of(int sx, int sy, int sz, int shift) {
+  rb::Grid G;
+  G.sx = sx; G.sy = sy; G.sz = sz;
+  G.shift = shift;
+  G.by = sy >> shift;
+  G.bz = sz >> shift;
+  return G;
+}
+
+}  // namespace
+
+extern "C" int brick_advance_launch(
+    const void* dist, int sx, int sy, int sz, int shift, int y_max, int budget,
+    const void* cell, const void* tmax, const void* step, const void* abs_delta,
+    const void* mat, const void* done, const void* lt, const void* la, const void* steps,
+    int n,
+    void* o_mat, void* o_cell, void* o_tmax, void* o_lt, void* o_la, void* o_steps,
+    void* o_done, void* stream) {
+  if (n <= 0) return 0;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  brick_advance_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      state_of(cell, tmax, step, abs_delta, mat, done, lt, la, steps),
+      out_of(o_mat, o_cell, o_tmax, o_lt, o_la, o_steps, o_done),
+      static_cast<const uint8_t*>(dist), grid_of(sx, sy, sz, shift), y_max, budget, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int brick_fine_launch(
+    const void* brick_mat, const void* luts, int sx, int sy, int sz, int shift, int budget,
+    const void* cell, const void* tmax, const void* step, const void* abs_delta,
+    const void* mat, const void* done, const void* lt, const void* la, const void* steps,
+    const void* blin, int n,
+    void* o_mat, void* o_cell, void* o_tmax, void* o_lt, void* o_la, void* o_steps,
+    void* o_done, void* o_evt, void* stream) {
+  if (n <= 0) return 0;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  brick_fine_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      state_of(cell, tmax, step, abs_delta, mat, done, lt, la, steps),
+      out_of(o_mat, o_cell, o_tmax, o_lt, o_la, o_steps, o_done),
+      static_cast<uint8_t*>(o_evt), static_cast<const uint8_t*>(brick_mat),
+      static_cast<const int32_t*>(luts), static_cast<const int32_t*>(blin),
+      grid_of(sx, sy, sz, shift), budget, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* kernel_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+#endif  // __CUDACC__

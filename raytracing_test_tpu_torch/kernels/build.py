@@ -6,7 +6,8 @@ probed whether Pallas compiles and fell back to interpret mode; here each
 a plain C interface, and a failed build raises. There is no interpreted
 fallback.
 
-``library(name)`` builds one source on first use; ``build_all()`` starts one
+``library(name)`` builds one source on first use (``fused_march``,
+``fused_window``, ``brick_march``); ``build_all()`` starts one
 ``nvcc`` per source, all at once, and loads them. A library is keyed on a
 hash of its source and the flags, and lands in ``_build/`` beside this
 package (listed in ``.gitignore``). Only a library that built and loaded is
@@ -58,8 +59,9 @@ def sources():
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(src.name.encode())
-    h.update(src.read_bytes())
+    for f in [src] + sorted(CSRC_DIR.glob("*.cuh")):  # the shared headers too
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
@@ -151,4 +153,24 @@ def _declare_fused_window(lib: ctypes.CDLL) -> None:
     lib.window_bwd_launch.restype = ctypes.c_int
 
 
-_DECLARE = {"fused_march": _declare_fused_march, "fused_window": _declare_fused_window}
+def _declare_brick_march(lib: ctypes.CDLL) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    state = [P] * 9  # cell, tmax, step, abs_delta, mat, done, last_t, last_axis, steps
+    outs = [P] * 7  # mat, cell, tmax, last_t, last_axis, steps, done
+    lib.brick_advance_launch.argtypes = (
+        [P] + [I] * 6  # brick_dist, sx, sy, sz, shift, y_max, budget
+        + state + [I] + outs + [P]  # n; stream
+    )
+    lib.brick_advance_launch.restype = ctypes.c_int
+    lib.brick_fine_launch.argtypes = (
+        [P, P] + [I] * 5  # brick_mat, luts, sx, sy, sz, shift, budget
+        + state + [P, I] + outs + [P, P]  # blin, n; evt, stream
+    )
+    lib.brick_fine_launch.restype = ctypes.c_int
+
+
+_DECLARE = {
+    "fused_march": _declare_fused_march,
+    "fused_window": _declare_fused_window,
+    "brick_march": _declare_brick_march,
+}

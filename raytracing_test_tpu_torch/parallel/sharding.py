@@ -44,7 +44,7 @@ def params_to_scene(p: FitParams, density_scale: float = 25.0) -> DiffScene:
     )
 
 
-def init_params(grid_shape, device="cpu") -> FitParams:
+def init_params(grid_shape, device="cuda") -> FitParams:
     Sx, Sy, Sz = grid_shape
     f32 = torch.float32
     return FitParams(
@@ -53,7 +53,7 @@ def init_params(grid_shape, device="cpu") -> FitParams:
     )
 
 
-def params_from_jax(density_raw, albedo_raw, device="cpu") -> FitParams:
+def params_from_jax(density_raw, albedo_raw, device="cuda") -> FitParams:
     """FitParams from the JAX package's ``FitParams`` arrays (numpy)."""
     put = lambda a: torch.from_numpy(np.array(a, np.float32, order="C")).to(device)
     return FitParams(put(density_raw), put(albedo_raw))

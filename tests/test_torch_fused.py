@@ -111,7 +111,7 @@ def test_build_raises_without_nvcc_and_caches_nothing(monkeypatch, tmp_path):
     import torch.utils.cpp_extension as cpp_ext
 
     monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
-    for name in ("fused_march", "fused_window"):
+    for name in ("fused_march", "fused_window", "brick_march"):
         with pytest.raises(RuntimeError, match="nvcc"):
             build.library(name)
     with pytest.raises(RuntimeError, match="nvcc"):

@@ -3,7 +3,8 @@ JAX package's originals.
 
 The port imports nothing of ``raytracing_test_tpu``, so it carries copies of
 ``config``, ``core.types`` / ``core.color`` / ``core.tree``, the 2D noise,
-``worldgen.terrain`` and ``app.picking``. They are numpy and Python in both
+``worldgen.terrain``, ``app.picking`` and ``chebyshev_distance_field``
+(``core/flatten.py``). They are numpy and Python in both
 packages, so worlds, palettes, noise and pick results must be equal exactly.
 """
 
@@ -60,6 +61,18 @@ def test_noise_matches_jax(seed):
     tn, jn = tnoise.OpenSimplex2D(seed), jnoise.OpenSimplex2D(seed)
     np.testing.assert_array_equal(tn.eval_vec(x, y), jn.eval_vec(x, y))
     assert tn.eval(1.5, -2.25) == jn.eval(1.5, -2.25)
+
+
+@pytest.mark.parametrize("cap", [8, 15])
+def test_chebyshev_distance_field_matches_jax(cap):
+    from raytracing_test_tpu.ops.mxu_lookup import chebyshev_distance_field as jcheb
+    from raytracing_test_tpu_torch.core.flatten import chebyshev_distance_field as tcheb
+
+    occ = np.random.default_rng(cap).random((20, 9, 14)) < 0.01
+    got, want = tcheb(occ, cap=cap), jcheb(occ, cap=cap)
+    assert got.dtype == want.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    assert (got[occ] == 0).all() and got.max() >= 3
 
 
 def test_color_packing_matches_jax():

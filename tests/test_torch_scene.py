@@ -47,6 +47,47 @@ def test_scene_from_grid_matches_jax(world):
     assert tj.y_max == ts.y_max
 
 
+@pytest.mark.parametrize("world", [_material_world, _terrain64], ids=["materials", "terrain64"])
+def test_brick_fields_match_jax(world):
+    """brick_mat and brick_dist equal the reference's arrays bit for bit;
+    brick_dist_shadow equals its nibble table decoded; scene_from_jax
+    carries all three."""
+    from raytracing_test_tpu.ops.mxu_lookup import mxu_nibble_lookup2
+
+    grid, pal = world()
+    js = jflat.scene_from_grid(grid, pal)
+    ts = tflat.scene_from_grid(grid, pal, "cpu")
+    assert ts.brick_shift == js.brick_shift and ts.brick_grid == tuple(js.brick_grid)
+    for name in ("brick_mat", "brick_dist"):
+        want = np.asarray(getattr(js, name))
+        got = getattr(ts, name).numpy()
+        assert got.dtype == want.dtype == np.uint8, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    nb = ts.brick_dist.numel()
+    decoded = np.asarray(mxu_nibble_lookup2(js.brick_nib_shadow, jnp.arange(nb, dtype=jnp.int32)))
+    np.testing.assert_array_equal(ts.brick_dist_shadow.numpy().reshape(-1), decoded)
+    assert ts.brick_dist_shadow.dtype == torch.uint8
+
+    fields = {k: np.asarray(v) for k, v in js._asdict().items() if v is not None}
+    tj = tflat.scene_from_jax(fields, "cpu")
+    for name in ("brick_mat", "brick_dist", "brick_dist_shadow"):
+        assert torch.equal(getattr(tj, name), getattr(ts, name)), name
+    bare = {k: v for k, v in fields.items() if not k.startswith("brick_")}
+    assert tflat.scene_from_jax(bare, "cpu").brick_mat is None
+
+
+def test_default_world_bricks():
+    """The default world: 4^3 bricks, 131,072 of them, an 8.4 MB brick_mat."""
+    assert tflat.pick_brick_shift((256, 128, 256)) == 2
+    g = np.zeros((256, 128, 256), np.uint8)
+    g[3, 5, 7] = 1
+    rows = tflat.brick_rows(g, 2)
+    assert rows.shape == (131072, 64) and rows.nbytes == 8388608
+    assert rows[(0 * 32 + 1) * 64 + 1, (3 * 4 + 1) * 4 + 3] == 1
+    with pytest.raises(ValueError):
+        tflat.pick_brick_shift((6, 8, 8))
+
+
 def test_grid_enc_rejects_wide_material_ids():
     g = np.zeros((8, 8, 8), np.uint8)
     g[1, 1, 1] = 128

@@ -88,11 +88,11 @@ def test_seed_depth_fused_matches_jax_fast_path():
 def test_params_to_scene_and_init_match_jax():
     d, a = _raw_params()
     jp = jshard.FitParams(jnp.asarray(d), jnp.asarray(a))
-    tp = tshard.params_from_jax(d, a)
+    tp = tshard.params_from_jax(d, a, device="cpu")
     js, ts = jshard.params_to_scene(jp), tshard.params_to_scene(tp)
     np.testing.assert_allclose(ts.density.detach().numpy(), np.asarray(js.density), rtol=1e-6)
     np.testing.assert_allclose(ts.albedo.detach().numpy(), np.asarray(js.albedo), rtol=1e-6)
-    ji, ti = jshard.init_params(SHAPE), tshard.init_params(SHAPE)
+    ji, ti = jshard.init_params(SHAPE), tshard.init_params(SHAPE, device="cpu")
     np.testing.assert_array_equal(ti.density_raw.detach().numpy(), np.asarray(ji.density_raw))
     np.testing.assert_array_equal(ti.albedo_raw.detach().numpy(), np.asarray(ji.albedo_raw))
 
@@ -100,7 +100,7 @@ def test_params_to_scene_and_init_match_jax():
 def test_guide_scene_matches_jax():
     d, a = _raw_params(2)
     jg = jshard.guide_scene_from_params(jshard.FitParams(jnp.asarray(d), jnp.asarray(a)))
-    tg = tshard.guide_scene_from_params(tshard.params_from_jax(d, a))
+    tg = tshard.guide_scene_from_params(tshard.params_from_jax(d, a, device="cpu"))
     occ = np.asarray(jg.grid_enc) < 128
     assert 0.1 < occ.mean() < 0.9
     for name in ("grid_enc", "albedo", "flags"):
@@ -124,7 +124,8 @@ def jax_state():
 def test_params_and_adam_state_round_trip(jax_state):
     p, st = jax_state
     adam = st[0]
-    tp = tshard.params_from_jax(np.asarray(p.density_raw), np.asarray(p.albedo_raw))
+    tp = tshard.params_from_jax(np.asarray(p.density_raw), np.asarray(p.albedo_raw),
+                               device="cpu")
     opt = torch.optim.Adam(tp.parameters(), lr=0.05)
     states = tshard.adam_state_from_optax(np.asarray(adam.count), tuple(np.asarray(x) for x in adam.mu),
                                           tuple(np.asarray(x) for x in adam.nu))
@@ -141,7 +142,7 @@ def test_checkpoints_cross_between_packages(jax_state, tmp_path):
     p, st = jax_state
     jpath = str(tmp_path / "jax.npz")
     jckpt.save_fit(jpath, p, st, 7)
-    tp, states, step = tckpt.load_fit(jpath)
+    tp, states, step = tckpt.load_fit(jpath, device="cpu")
     assert step == 7
     np.testing.assert_array_equal(tp.albedo_raw.detach().numpy(), np.asarray(p.albedo_raw))
     opt = torch.optim.Adam(tp.parameters(), lr=0.05)
@@ -171,7 +172,7 @@ def test_train_steps_match_jax_adam():
     """Three make_train_step_fused steps vs three JAX steps (window anchor +
     optax.adam) from the same weights, guide, seeds and batches."""
     d, a = _raw_params(6)
-    tp = tshard.params_from_jax(d, a)
+    tp = tshard.params_from_jax(d, a, device="cpu")
     topt = torch.optim.Adam(tp.parameters(), lr=0.05)
     guide = tshard.guide_scene_from_params(tp)
     step_fn = tshard.make_train_step_fused(tp, topt, guide)
@@ -230,7 +231,7 @@ def test_fit_verb_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     losses = [float(v) for v in out.split("fit done: loss ")[1].split(" -> ")]
     assert np.isfinite(losses).all()
-    params, states, step = tckpt.load_fit(ck)
+    params, states, step = tckpt.load_fit(ck, device="cpu")
     assert step == 2 and int(states[0]["step"]) == 2
     assert cli.build_parser().parse_args(["fit"]).engine == "fused"
     assert cli.build_parser().parse_args(["render"]).device == "cuda"
