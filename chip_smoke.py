@@ -67,6 +67,44 @@ Phases (any failure raises, and the script exits non-zero):
                    plain brick frame, and one torch.profiler pass over the
                    brick frame;
                 e. bounds of those two launches from their data.
+  9. prox   -- the march's prox mode (the seed march that stops at the first
+                entry into an occupied 8^3 brick) and the prox-seeded window
+                render, on the default world at 1024x1024 from the bench
+                camera:
+                a. kernel parity: the prox kernel against the plain prox march
+                   on both passes of the prox seed (coarse x4, then the full
+                   resolution from the coarse seeds); integer fields equal,
+                   float fields equal to the bit;
+                b. conservative seed: prox seeds (margin 0) <= exact seeds + 1e-4
+                   on every ray the exact march hits, and every such ray a prox
+                   hit; the rays only the prox march calls hits (grazes of a
+                   surface brick that reach the sky) are counted, and so are
+                   the rays seeded at the coarse pass's far cap whose wrapped
+                   start cell would make a hit (the port calls them sky);
+                c. orchestration: render_rays_guided_prox at its default budget
+                   on the kernels against the same pipeline on the plain
+                   versions on the card (the march and the window wrappers
+                   swapped for their plain versions): assert_images_close,
+                   gradients of mean(rgb^2) in density and albedo within 1e-5
+                   max-scaled, the same patch counts; n_need, patch_capacity
+                   and grads_dropped are printed (an overflow is a finding);
+                d. against the exact-seed render: at patch_div 1, against
+                   render_rays_diff_guided(image_hw=(1024, 1024)), rgb within
+                   2e-3, gradients within 5e-3 max-scaled (density on the solid
+                   cells: the two pipelines sample other air) at sat_eps 1e-6;
+                   at the default sat_eps 1e-3 the same but for the density
+                   gradient, which is printed (unpatched windows end with up
+                   to 1e-3 of transmittance); the reference's own measure
+                   (density on every cell over the whole field's maximum) is
+                   printed at both;
+                e. main path: one render_rays_guided_prox loss+backward with the
+                   launch counts reset just before and read just after; then
+                   ``fit --engine '' --guided --steps 5`` through the CLI,
+                   in-process, counts reset again;
+                f. timing: prox seed against exact seed, the prox kernel per
+                   pass and its plain version, the prox pipeline's
+                   loss+backward against the exact-seed pipeline's, and the
+                   prox kernel's bound from this run's data.
 
 The line before the last holds the card's name and power limit, the one
 before it the per-kernel JSON (time, launches, plain time and the bound:
@@ -94,6 +132,9 @@ BENCH_DIR = (0.55, -0.4, 0.55)
 WATER_TIME = 1.2
 ATOL, MAX_BAD_FRAC, MIN_EQ_FRAC = 1e-5, 0.01, 0.999
 GRAD_TOL = 1e-5  # max-scaled, kernel vs plain version
+# prox pipeline against the exact-seed guided render (the reference's own
+# contract, tests/test_fused_window.py:608,622): rgb, and gradients max-scaled
+PROX_RGB_TOL, PROX_GRAD_TOL = 2e-3, 5e-3
 NUM_STEPS = 24  # bench.py's window length
 SOLID_DENSITY = 50.0  # bench.py's diff scene
 TRAIN_BATCH = 16384
@@ -705,6 +746,242 @@ def bricks_phase(dev, card, side, scene, o_full, wscene, wpos, wdir, cli):
     ]
 
 
+def march_parity(name, k, p, card) -> float:
+    """A fused_march_call dict against its plain version's: integer fields
+    equal, float fields equal to the bit. Returns the largest float difference."""
+    err, bad = 0.0, []
+    for f in k:
+        a, b = k[f], p[f]
+        if a.is_floating_point():
+            same = a.view(torch.int32) == b.view(torch.int32)
+            err = max(err, float((a - b).abs().max()))
+        else:
+            same = a == b
+        n_bad = int((~same.reshape(a.shape[0], -1).all(dim=1)).sum())
+        if n_bad:
+            bad.append(f"{f} on {n_bad} rays")
+    print(f"parity {name}: {k['mat'].shape[0]} rays, {int((k['mat'] != 0).sum())} stopped, "
+          f"max_abs_err {err:.3e}, " + ("all fields equal" if not bad else "DIFFER: " + "; ".join(bad))
+          + f" | {card}")
+    if bad:
+        raise AssertionError(f"{name}: the prox kernel disagrees with its plain version")
+    return err
+
+
+class plain_versions:
+    """Within this block the march and window wrappers run their plain
+    versions on CUDA tensors (the pipeline the kernels are held against)."""
+
+    def __enter__(self):
+        from raytracing_test_tpu_torch.kernels import fused_march as fm
+        from raytracing_test_tpu_torch.kernels import fused_window as fw
+
+        self.saved = (fm.fused_march_call, fw.window_call)
+        fm.fused_march_call = lambda scene, s, cfg, time_s=None, prox=False: fm.fused_march_plain(
+            scene, s, cfg, cfg.time if time_s is None else time_s, prox)
+        fw.window_call = fw.window_plain
+
+    def __exit__(self, *exc):
+        from raytracing_test_tpu_torch.kernels import fused_march as fm
+        from raytracing_test_tpu_torch.kernels import fused_window as fw
+
+        fm.fused_march_call, fw.window_call = self.saved
+
+
+def counts():
+    from raytracing_test_tpu_torch.kernels import fused_march as fm
+    from raytracing_test_tpu_torch.kernels import fused_window as fw
+
+    return {"fused_march": fm.LAUNCHES, "fused_march_prox": fm.LAUNCHES_PROX,
+            "window_fwd": fw.LAUNCHES_FWD, "window_bwd": fw.LAUNCHES_BWD}
+
+
+def reset_counts():
+    from raytracing_test_tpu_torch.kernels import fused_march as fm
+    from raytracing_test_tpu_torch.kernels import fused_window as fw
+
+    fm.LAUNCHES = fm.LAUNCHES_PROX = fw.LAUNCHES_FWD = fw.LAUNCHES_BWD = 0
+
+
+def prox_grads(render, ds, cam, dirs):
+    """rgb, aux and the gradients of mean(rgb^2) in density and albedo."""
+    from raytracing_test_tpu_torch.render.diff import DiffScene
+
+    d = ds.density.detach().clone().requires_grad_(True)
+    a = ds.albedo.detach().clone().requires_grad_(True)
+    out = render(DiffScene(d, a), cam.pos, dirs)
+    rgb, aux = out if isinstance(out, tuple) else (out, None)
+    torch.mean(rgb ** 2).backward()
+    torch.cuda.synchronize()
+    return rgb.detach(), aux, d.grad, a.grad
+
+
+def max_scaled(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def prox_phase(dev, card, side, grid, pal, scene, cli):
+    """Phase 9, the prox seed and the prox-seeded window render. Returns its
+    entry of the kernels line."""
+    from raytracing_test_tpu_torch.config import RenderConfig
+    from raytracing_test_tpu_torch.core.flatten import PROX_AIR, palette_arrays
+    from raytracing_test_tpu_torch.kernels import fused_march as fm
+    from raytracing_test_tpu_torch.render import diff, fast, progressive
+    from raytracing_test_tpu_torch.render.camera import Camera, ray_directions
+
+    n = side * side
+    cf = 4
+    cam = Camera(pos=torch.tensor(BENCH_POS, device=dev), dir=torch.tensor(BENCH_DIR, device=dev))
+    dirs = ray_directions(cam, side, side)
+    t0 = time.perf_counter()
+    prox_enc = scene.prox_enc
+    torch.cuda.synchronize()
+    print(f"prox grid: built in {time.perf_counter() - t0:.3f} s (host, once per Scene), "
+          f"{float((prox_enc < 128).float().mean()):.4f} of the cells are stop cells")
+
+    # a. kernel parity on both passes of the prox seed
+    lean = dict(enable_materials=False, enable_shadows=False)
+    rc = RenderConfig(width=side // cf, height=side // cf, **lean)
+    rn = RenderConfig(width=side, height=side, **lean)
+    cdirs = dirs.reshape(side, side, 3)[cf // 2::cf, cf // 2::cf].reshape(-1, 3).contiguous()
+    s_c = fast._init_state(cam.pos, cdirs, torch.ones(cdirs.shape[0], device=dev))
+    err = march_parity("prox coarse pass", fm.fused_march_call(scene, s_c, rc, 0.0, prox=True),
+                       fm.fused_march_plain(scene, s_c, rc, 0.0, prox=True), card)
+    depth = fm.hit_seeds(scene, cam.pos, cdirs, rc, margin=0.0, prox=True)
+    st = progressive.seed_from_depth(depth.reshape(side // cf, side // cf), cf, side, side)
+    s_f = fast._init_state(cam.pos, dirs, torch.ones(n, device=dev), start_t=st)
+    o_f = fm.fused_march_call(scene, s_f, rn, 0.0, prox=True)
+    err = max(err, march_parity("prox full pass", o_f, fm.fused_march_plain(scene, s_f, rn, 0.0, prox=True),
+                                card))
+    air_stop = fast._gather_enc(scene, o_f["cell"], prox=True) == PROX_AIR
+
+    # rays seeded at the coarse pass's far cap: the &1023 wrap of their start
+    # cell, 1e5 cells out, makes "hits" that the port calls sky
+    wrapped = {}
+    for mode, start in (("prox", st), ("exact", progressive.seed_from_depth(
+            fm.hit_seeds(scene, cam.pos, cdirs, rc, margin=0.0).reshape(side // cf, side // cf),
+            cf, side, side))):
+        _, aux = fm.render_rays_fused(scene, cam.pos, dirs, rn, start_t=start, prox=mode == "prox")
+        wrapped[mode] = (int((start >= progressive.FAR_SEED).sum()),
+                         int((aux["hit"] & (start >= progressive.FAR_SEED)).sum()))
+    print(f"far cap: rays seeded at {progressive.FAR_SEED:g} (seeded, of them hit by the wrap): "
+          f"{wrapped} | {card}")
+
+    # b. the prox seed is conservative
+    seed_p = fm.seed_depth_fused(scene, cam.pos, dirs, (side, side), margin=0.0, prox=True)
+    seed_e = fm.seed_depth_fused(scene, cam.pos, dirs, (side, side), margin=0.0)
+    hit_p, hit_e = seed_p < 9.9e5, seed_e < 9.9e5
+    n_lost = int((hit_e & ~hit_p).sum())
+    n_late = int((seed_p[hit_e] > seed_e[hit_e] + 1e-4).sum())
+    gap = (seed_e - seed_p)[hit_e]
+    print(f"prox seed: {int(hit_e.sum())} exact hits, {int(hit_p.sum())} prox hits "
+          f"({int((hit_p & ~hit_e).sum())} only prox: grazes of a surface brick that reach the sky), "
+          f"{n_lost} exact hits missed, {n_late} prox seeds beyond the exact seed + 1e-4; exact - prox "
+          f"seed mean {float(gap.mean()):.3f} max {float(gap.max()):.3f} cells; "
+          f"{int(air_stop.sum())} full-pass rays stopped in the air of a surface brick | {card}")
+    if n_lost or n_late:
+        raise AssertionError("the prox seed is not conservative against the exact seed")
+
+    # c. orchestration on the kernels against the same pipeline on the plain versions
+    ds = diff.diff_scene_from_grid(grid, palette_arrays(pal)[0], dev, solid_density=SOLID_DENSITY)
+
+    def prox_render(patch_div=64, sat_eps=1e-3):
+        return lambda s, o, d: diff.render_rays_guided_prox(
+            s, scene, o, d, (side, side), patch_div=patch_div, sat_eps=sat_eps, return_aux=True)
+
+    k = prox_grads(prox_render(), ds, cam, dirs)
+    before = counts()
+    with plain_versions():
+        p = prox_grads(prox_render(), ds, cam, dirs)
+    if counts() != before:
+        raise AssertionError("the plain pipeline launched a kernel")
+    d = (k[0] - p[0]).abs().max(dim=1).values
+    bad = float((d > ATOL).float().mean())
+    g_err = {"density": max_scaled(k[2], p[2]), "albedo": max_scaled(k[3], p[3])}
+    print(f"parity prox pipeline (patch_div 64) vs its plain versions: max_abs_err {float(d.max()):.3e} "
+          f"bad_frac {bad:.6f}; gradients max-scaled " + " ".join(f"{a} {v:.3e}" for a, v in g_err.items())
+          + f"; aux {k[1]} (plain {p[1]}) | {card}")
+    if (bad > MAX_BAD_FRAC or max(g_err.values()) > GRAD_TOL or k[1] != p[1]
+            or not torch.isfinite(k[0]).all()):
+        raise AssertionError("the prox pipeline on the kernels disagrees with its plain versions")
+
+    # d. against the exact-seed guided render, every patch inside the budget.
+    # Windows that end with transmittance up to sat_eps are not patched: at
+    # sat_eps 1e-6 the whole contract holds; at the default 1e-3 the density
+    # gradient is printed (edge rays, barely absorbed, dominate it)
+    ref = prox_grads(lambda s, o, d_: diff.render_rays_diff_guided(
+        s, scene, o, d_, num_steps=NUM_STEPS, sky=False, image_hw=(side, side)), ds, cam, dirs)
+    solid = ds.density > 0
+    for sat_eps in (1e-6, 1e-3):
+        k1 = prox_grads(prox_render(patch_div=1, sat_eps=sat_eps), ds, cam, dirs)
+        e_rgb = float((k1[0] - ref[0]).abs().max())
+        e_d, e_a = max_scaled(k1[2][solid], ref[2][solid]), max_scaled(k1[3], ref[3])
+        e_air = max_scaled(k1[2][~solid], ref[2][~solid])
+        e_whole = max_scaled(k1[2], ref[2])
+        print(f"prox pipeline (patch_div 1, sat_eps {sat_eps:g}) vs the exact-seed guided render: "
+              f"aux {k1[1]}, rgb max_abs_err {e_rgb:.3e}, gradients max-scaled density (solid "
+              f"cells) {e_d:.3e} albedo {e_a:.3e}; density on air cells {e_air:.3e} (other empty "
+              f"space sampled); the reference's measure, density on every cell over the whole "
+              f"field's maximum, {e_whole:.3e} | {card}")
+        e_grad = max(e_d, e_a) if sat_eps < 1e-3 else e_a
+        if k1[1]["grads_dropped"] or e_rgb > PROX_RGB_TOL or e_grad > PROX_GRAD_TOL:
+            raise AssertionError("the prox pipeline disagrees with the exact-seed guided render")
+
+    # e. the main path: the prox pipeline once, then the guided fit through the CLI
+    reset_counts()
+    prox_grads(prox_render(), ds, cam, dirs)
+    main = counts()
+    print(f"main path render_rays_guided_prox loss+backward: launches {main}")
+    if main["fused_march_prox"] != 2 or min(main["window_fwd"], main["window_bwd"]) == 0:
+        raise AssertionError(f"the prox pipeline did not launch its kernels: {main}")
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["--device", str(dev), "fit", "--engine", "", "--guided", "--steps", "5"])
+    torch.cuda.synchronize()
+    fit_counts = counts()
+    print(f"cli fit --engine '' --guided: 5 steps in {time.perf_counter() - t0:.2f} s (world and "
+          f"targets included); launches {fit_counts} | {card}")
+    if fit_counts["window_fwd"] != 5 or fit_counts["window_bwd"] != 5 or fit_counts["fused_march"] < 13:
+        raise AssertionError(f"the guided fit did not run through the kernels: {fit_counts}")
+
+    # f. timing
+    seed_p_ms = cuda_ms(lambda: fm.seed_depth_fused(scene, cam.pos, dirs, (side, side), margin=0.5,
+                                                    prox=True), reps=10, warmup=2)
+    seed_e_ms = cuda_ms(lambda: fm.seed_depth_fused(scene, cam.pos, dirs, (side, side)), reps=10,
+                        warmup=2)
+    coarse_ms = cuda_ms(lambda: fm.fused_march_call(scene, s_c, rc, 0.0, prox=True), reps=20, warmup=3)
+    full_ms = cuda_ms(lambda: fm.fused_march_call(scene, s_f, rn, 0.0, prox=True), reps=20, warmup=3)
+    lean_ms = cuda_ms(lambda: fm.fused_march_call(scene, s_f, rn, 0.0), reps=20, warmup=3)
+    plain_ms = cuda_ms(lambda: fm.fused_march_plain(scene, s_f, rn, 0.0, prox=True), reps=3, warmup=1)
+
+    def step(render):
+        return lambda: prox_grads(render, ds, cam, dirs)
+
+    exact_render = lambda s, o, d_: diff.render_rays_diff_guided(  # noqa: E731
+        s, scene, o, d_, num_steps=NUM_STEPS, sky=False, image_hw=(side, side))
+    pipe_ms = {"prox": cuda_ms(step(prox_render()), reps=5, warmup=2),
+               "exact": cuda_ms(step(exact_render), reps=5, warmup=2)}
+    print(f"timing prox {side}x{side}: seed prox {seed_p_ms:.4f} ms vs exact {seed_e_ms:.4f} ms; prox "
+          f"kernel coarse pass {coarse_ms:.4f} ms, full pass {full_ms:.4f} ms (lean kernel on the same "
+          f"start points {lean_ms:.4f} ms), plain prox march {plain_ms:.3f} ms; loss+backward with the "
+          f"seed: prox pipeline {pipe_ms['prox']:.4f} ms, exact-seed pipeline {pipe_ms['exact']:.4f} ms "
+          f"| {card}")
+    profile_step(step(prox_render()), card, steps=3, label="prox pipeline (seed + windows + patch)")
+
+    # bound of the full pass from its data: prox_enc and the palette flags read
+    # once, 72 bytes of rays in and 88 out per ray; one step per crossing
+    crossings = int(o_f["steps"].to(torch.int64).sum())
+    nbytes = prox_enc.numel() + scene.flags.numel() * 4 + n * (72 + 88)
+    b = bound(nbytes, crossings * MARCH_OPS_PER_CROSSING)
+    print(f"bound fused_march_prox full pass: {nbytes} bytes, {crossings} crossings -> {b[0]:.4f} ms "
+          f"({b[1]}), kernel at {b[0] / full_ms:.3f} of it | {card}")
+    return dict(name="fused_march_prox", route="cuda",
+                source="raytracing_test_tpu_torch/csrc/fused_march.cu",
+                replaces="raytracing_test_tpu/kernels/fused_march.py:148",
+                launches=main["fused_march_prox"], max_abs_err=err, ms=full_ms, plain_ms=plain_ms,
+                bound_ms=b[0], bound_by=b[1], library_ms=None)
+
+
 def check_png(path, side):
     with open(path, "rb") as f:
         head = f.read(24)
@@ -855,6 +1132,9 @@ def run(dev: torch.device, side: int) -> int:
             "library_ms": None,
         })
     kernels += brick_kernels
+
+    # 9. the prox seed and the prox-seeded window render
+    kernels.append(prox_phase(dev, card, side, grid, pal, scene, cli))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,12 +11,14 @@ bricks`` / ``bricks-pallas`` through the brick engine
 the card, their plain versions on ``--device cpu``; the reference's
 XLA / Pallas split has no meaning on the card, and both names are kept so
 that a command line of the JAX package runs unchanged). ``fit`` runs
-``app/fit.fit_world`` on the fused engine, the only one ported.
+``app/fit.fit_world``: the fused step, through ``render_rays_diff_guided``;
+``--engine '' --guided`` runs the same step.
 
     python -m raytracing_test_tpu_torch.app.cli render --out frame.png
     python -m raytracing_test_tpu_torch.app.cli render --mode bricks-pallas --out frame.png
     python -m raytracing_test_tpu_torch.app.cli animate --frames 8 --out-dir anim/
     python -m raytracing_test_tpu_torch.app.cli fit --steps 20
+    python -m raytracing_test_tpu_torch.app.cli fit --engine "" --guided --steps 20
 
 ``edit`` and ``probe``, and the render modes ``fast``, ``reference``,
 ``progressive``, ``pallas``, ``spatial`` and ``handoff``, are not ported yet
@@ -223,10 +225,12 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--batch", type=int, default=8192)
     f.add_argument("--ckpt", default="")
     f.add_argument("--guided", action="store_true",
-                   help="surface-guided sampling (the fused engine always is)")
+                   help="surface-guided sampling with occupancy re-thresholding (the fused "
+                   "engine always is)")
     f.add_argument("--engine", default="fused", choices=["", "fused"],
                    help="training engine: 'fused' = the seed march + window kernel pair "
-                   "(the only engine ported; '' raises)")
+                   "(render_rays_diff_guided); '' with --guided = the same step, else the "
+                   "blind scan, not ported (raises)")
     f.add_argument("--shading", action="store_true",
                    help="fit face-shaded targets (matches the hard renderer's output)")
     f.add_argument("--out", default="", help="render the fit (not ported yet: raises)")

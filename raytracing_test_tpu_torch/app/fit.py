@@ -1,11 +1,14 @@
 """Inverse rendering: fit voxel densities and albedos to target views.
 
-Port of ``raytracing_test_tpu/app/fit.py`` for the fused engine on one
-device: targets are rendered by the hard renderer from a ring of cameras
-around the world, then ``make_train_step_fused`` (seed march on an occupancy
-guide, window kernel pair, MSE, Adam) fits the continuous fields. The guide
+Port of ``raytracing_test_tpu/app/fit.py`` on one device: targets are
+rendered by the hard renderer from a ring of cameras around the world, then
+``make_train_step_fused`` (seed march on an occupancy guide, window kernel
+pair, MSE, Adam, through ``render_rays_diff_guided``) fits the continuous
+fields. Engine ``"fused"`` and engine ``""`` with ``guided`` run that one
+step: on one device the reference's guided step computes the same. The guide
 is re-thresholded from the evolving density every ``rethreshold_every``
-steps. Batches are drawn with numpy's ``default_rng(seed)``, as in the
+steps. The unguided XLA step (engine ``""``) marches blind and is not
+ported. Batches are drawn with numpy's ``default_rng(seed)``, as in the
 reference.
 """
 
@@ -56,10 +59,12 @@ def make_targets(scene, cams: List[Camera], res: int):
 def fit_world(scene, grid_shape, fcfg: FitConfig = FitConfig(), batch: int = 16384,
               seed: int = 0, ckpt_path: Optional[str] = None, log_every: int = 20):
     """Run the fit on ``scene``'s device; returns (params, losses)."""
-    if fcfg.engine != "fused":
+    if fcfg.engine not in ("", "fused"):
+        raise ValueError(f"unknown fit engine {fcfg.engine!r}")
+    if not (fcfg.engine == "fused" or fcfg.guided):
         raise NotImplementedError(
-            f"fit engine {fcfg.engine!r}: only 'fused' is ported; the XLA-step "
-            "engines wait for ROADMAP.md, 'Modules to port', item 10"
+            "fit engine '' without guided marches blind (render_rays_diff), which is "
+            "not ported yet; see ROADMAP.md, 'Modules to port', item 10"
         )
     dev = scene.device
     Sx, Sy, Sz = grid_shape
@@ -71,7 +76,8 @@ def fit_world(scene, grid_shape, fcfg: FitConfig = FitConfig(), batch: int = 163
 
     params = shardlib.init_params(grid_shape, dev)
     optimizer = torch.optim.Adam(params.parameters(), lr=fcfg.lr)
-    step_fn = None
+    step_fn = shardlib.make_train_step_fused(params, optimizer, num_steps=fcfg.guided_steps,
+                                             shading=fcfg.shading)
     guide = None
     rng = np.random.default_rng(seed)
     losses = []
@@ -79,9 +85,6 @@ def fit_world(scene, grid_shape, fcfg: FitConfig = FitConfig(), batch: int = 163
         if guide is None or step % fcfg.rethreshold_every == 0:
             # occupancy re-thresholding: the guide tracks the evolving field
             guide = shardlib.guide_scene_from_params(params, tau=fcfg.guide_tau)
-            if step_fn is None:
-                step_fn = shardlib.make_train_step_fused(
-                    params, optimizer, guide, num_steps=fcfg.guided_steps, shading=fcfg.shading)
         idx = torch.from_numpy(rng.integers(0, N, batch)).to(dev)
         loss, _ = step_fn(origins[idx], dirs[idx], targets[idx], guide=guide)
         losses.append(float(loss))

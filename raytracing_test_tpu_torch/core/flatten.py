@@ -15,6 +15,10 @@ The scene carries what the march and shading read:
   - palette tables ``albedo`` f32[P, 3], ``flags`` i32[P], ``metadata`` f32[P].
   - ``macro``: occupancy of 4^3 cells (u8), kept for parity with the
     reference scene.
+  - ``prox_enc`` (built at first use, not by ``scene_from_grid``): the grid
+    the march's prox mode reads (``build_prox_enc``). The reference derives
+    its stop rule from the class of each 8^3 brick in its MXU tables
+    (``core/fused_tables.py``); here it is one more u8 grid.
   - the brick fields of the brick path (render/bricks.py,
     kernels/brick_kernels.py): ``brick_mat`` u8 [NB, bs^3], the voxel rows
     of each brick; ``brick_dist`` u8 [Bx, By, Bz], the exact Chebyshev
@@ -32,6 +36,7 @@ does that job, so the port keeps them as plain u8 arrays.
 from __future__ import annotations
 
 from dataclasses import dataclass, fields as dc_fields
+from functools import cached_property
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -43,6 +48,8 @@ from .types import Properties
 
 MACRO_SHIFT = 2  # macro cells are 4^3 voxels
 BRICK_DIST_CAP = 8  # max brick-level Chebyshev distance (licence <= 7 bricks)
+PROX_BRICK = 8  # edge of the bricks whose first entry stops a prox march
+PROX_AIR = 127  # prox_enc code of an air cell in an occupied brick (a stop cell)
 
 
 @dataclass(frozen=True)
@@ -79,6 +86,13 @@ class Scene:
     @property
     def device(self) -> torch.device:
         return self.grid_enc.device
+
+    @cached_property
+    def prox_enc(self) -> torch.Tensor:
+        """u8 [Sx, Sy, Sz]: the grid the march reads in its prox mode
+        (``build_prox_enc``), built from ``grid_enc`` at first use and kept."""
+        enc = build_prox_enc(self.grid_enc.cpu().numpy())
+        return torch.from_numpy(enc).to(self.device)
 
     @property
     def nbytes(self) -> int:
@@ -132,20 +146,50 @@ def _dilate_cheb(occ: np.ndarray, radius_log2: int) -> np.ndarray:
     return m
 
 
-def build_grid_enc(grid: np.ndarray) -> np.ndarray:
-    """Material grid -> distance-encoded grid (see the module docstring).
-
-    Air distances are power-of-two lower bounds (1, 2, 4, 8, 16, 32) built
-    with log-doubling dilations.
-    """
-    if int(grid.max(initial=0)) >= 128:
-        raise ValueError("material ids must fit 7 bits (< 128)")
-    occ = grid > 0
-    enc = np.full(grid.shape, 128 + 1, np.uint8)  # air, distance >= 1
+def _air_licences(occ: np.ndarray) -> np.ndarray:
+    """128 + d per cell, d a power-of-two lower bound (1, 2, 4, 8, 16, 32) of
+    the Chebyshev distance to the nearest ``occ`` cell, from log-doubling
+    dilations. Only the values of cells outside ``occ`` mean anything."""
+    enc = np.full(occ.shape, 128 + 1, np.uint8)  # air, distance >= 1
     for j in range(1, 6):  # dilation radii 1, 3, 7, 15, 31
         covered = _dilate_cheb(occ, j)
         enc[~covered] = 128 + (1 << j)  # distance > 2^j - 1  =>  >= 2^j
+    return enc
+
+
+def build_grid_enc(grid: np.ndarray) -> np.ndarray:
+    """Material grid -> distance-encoded grid (see the module docstring)."""
+    if int(grid.max(initial=0)) >= 128:
+        raise ValueError("material ids must fit 7 bits (< 128)")
+    occ = grid > 0
+    enc = _air_licences(occ)
     enc[occ] = grid[occ]
+    return enc
+
+
+def build_prox_enc(grid_enc: np.ndarray) -> np.ndarray:
+    """``grid_enc`` -> the grid of the march's prox mode, in the same layout.
+
+    Stop cells are the cells of every 8^3 brick that holds a solid cell: a
+    solid one keeps its material id, an air one holds ``PROX_AIR``. Every
+    other cell holds ``128 + d``, the licence of ``build_grid_enc`` computed
+    with the stop cells as occupied, so no licence box holds a stop cell.
+    Reads only ``grid_enc`` (a value < 128 is solid).
+    """
+    shape = grid_enc.shape
+    if any(d % PROX_BRICK for d in shape):
+        raise ValueError(f"grid shape {shape} not divisible by {PROX_BRICK}")
+    solid = grid_enc < 128
+    if (grid_enc[solid] == PROX_AIR).any():
+        raise ValueError(f"material id {PROX_AIR} is reserved by the prox grid")
+    b = PROX_BRICK
+    Bx, By, Bz = (d // b for d in shape)
+    occupied = solid.reshape(Bx, b, By, b, Bz, b).any(axis=(1, 3, 5))
+    stop = np.broadcast_to(occupied[:, None, :, None, :, None],
+                           (Bx, b, By, b, Bz, b)).reshape(shape)
+    enc = _air_licences(stop)
+    enc[stop] = PROX_AIR
+    enc[solid] = grid_enc[solid]
     return enc
 
 

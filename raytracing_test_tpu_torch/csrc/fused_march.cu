@@ -24,6 +24,15 @@
 // similar paths. Making it fast (ray reordering, persistent warps) is later
 // work.
 //
+// Prox mode (prox = 1; the reference's prox_stop, fused_march.py:148,
+// :275-278, :461-472): the seed march that stops at the first entry into an
+// occupied 8^3 brick. The primary loop then reads prox_enc (core/flatten.py:
+// build_prox_enc) instead of grid_enc: every value < 128 is a stop cell, the
+// reserved code kProxAir marks its air cells and reports material 1, and the
+// licences of the other cells are computed with the stop cells as occupied,
+// so a box crossing never skips one. The start cell's material (mat0), y_max
+// and the sky rule stay those of the real grid. Lean configs only.
+//
 // Arithmetic: built with -fmad=false and IEEE division/sqrt, every operation
 // rounds once, in the same order as the PyTorch version, so DDA near-ties
 // resolve identically. The DDA helpers shared with brick_march.cu are in
@@ -38,6 +47,7 @@ namespace rt {
 
 constexpr int kIterCap = 2048;   // loop guard; the step budgets end marches first
 constexpr int kMaxMat = 128;     // material ids fit 7 bits (grid_enc)
+constexpr int kProxAir = 127;    // prox_enc: air cell of an occupied brick
 constexpr int kLiquid = 0x10;
 constexpr int kRefractive = 0x4;
 constexpr float kIorWater = 1.1f;
@@ -45,6 +55,8 @@ constexpr float kEpsDir = 1e-12f;
 
 struct Params {
   const uint8_t* grid_enc;  // [sx, sy, sz]
+  const uint8_t* prox_enc;  // [sx, sy, sz], read by the primary loop when prox
+  int prox;
   int sx, sy, sz, y_max;
   int budget, shadow_budget, enable_materials, enable_shadows;
   float time_s;
@@ -58,11 +70,11 @@ struct Params {
   float *dir, *step, *seg, *lt, *cmod;
 };
 
-RT_DEV int gather_enc(const Params& P, const int c[3]) {
+RT_DEV int gather_enc(const Params& P, const uint8_t* grid, const int c[3]) {
   const int wx = c[0] & 1023, wy = c[1] & 1023, wz = c[2] & 1023;
   if (wx < P.sx && wy < P.sy && wz < P.sz) {
     const size_t lin = ((size_t)wx * P.sy + wy) * P.sz + wz;
-    return (int)RT_LDG(P.grid_enc + lin);
+    return (int)RT_LDG(grid + lin);
   }
   return 129;  // outside the window: air, minimal licence
 }
@@ -198,7 +210,7 @@ RT_DEV bool shadow_march(const Params& P, const int* flags_s, const float p[3],
 
   int mat = 0;
   for (int it = 0; it < kIterCap; ++it) {
-    const int enc = gather_enc(P, r.c);
+    const int enc = gather_enc(P, P.grid_enc, r.c);
     const int m = enc < kMaxMat ? enc : 0;
     mat = m;
     if (m != 0 && (flags_s[m] & kLiquid) == 0) break;  // occluder
@@ -229,7 +241,7 @@ RT_DEV void march_ray(const Params& P, const int* flags_s, int i) {
   r.steps = 0;
 
   // start-cell specials (frag:299-307)
-  const int enc0 = gather_enc(P, r.c);
+  const int enc0 = gather_enc(P, P.grid_enc, r.c);
   const int mat0 = enc0 < kMaxMat ? enc0 : 0;
   const bool refr0 = (flags_s[mat0] & kRefractive) != 0;
   const bool raw0 = mat0 != 0 && !refr0;
@@ -238,9 +250,10 @@ RT_DEV void march_ray(const Params& P, const int* flags_s, int i) {
   int mat = raw0 ? mat0 : 0;
 
   if (!raw0) {
+    const uint8_t* grid = P.prox ? P.prox_enc : P.grid_enc;
     for (int it = 0; it < kIterCap; ++it) {
-      const int enc = gather_enc(P, r.c);
-      const int m = enc < kMaxMat ? enc : 0;
+      const int enc = gather_enc(P, grid, r.c);
+      const int m = enc < kMaxMat ? (P.prox && enc == kProxAir ? 1 : enc) : 0;
       const int fl = flags_s[m];
       const int f7 = fl & 0x7;
       const bool solid = m != 0;
@@ -308,7 +321,7 @@ fused_march_kernel(rt::Params P, const int32_t* __restrict__ flags, int n_flags)
 }
 
 extern "C" int fused_march_launch(
-    const void* grid_enc, const void* flags, int n_flags,
+    const void* grid_enc, const void* prox_enc, int prox, const void* flags, int n_flags,
     int sx, int sy, int sz, int y_max,
     int budget, int shadow_budget, int enable_materials, int enable_shadows,
     float time_s, float sun_x, float sun_y, float sun_z,
@@ -321,6 +334,8 @@ extern "C" int fused_march_launch(
   if (n <= 0) return 0;
   rt::Params P;
   P.grid_enc = static_cast<const uint8_t*>(grid_enc);
+  P.prox_enc = static_cast<const uint8_t*>(prox_enc);
+  P.prox = prox;
   P.sx = sx; P.sy = sy; P.sz = sz; P.y_max = y_max;
   P.budget = budget; P.shadow_budget = shadow_budget;
   P.enable_materials = enable_materials; P.enable_shadows = enable_shadows;

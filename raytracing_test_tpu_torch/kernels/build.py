@@ -123,7 +123,7 @@ def build_all() -> None:
 def _declare_fused_march(lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fused_march_launch.argtypes = (
-        [P, P, I]  # grid_enc, flags, n_flags
+        [P, P, I, P, I]  # grid_enc, prox_enc, prox, flags, n_flags
         + [I] * 4  # sx, sy, sz, y_max
         + [I] * 4  # budget, shadow_budget, enable_materials, enable_shadows
         + [F] * 4  # time_s, sun x/y/z

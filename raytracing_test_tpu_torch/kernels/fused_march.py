@@ -9,11 +9,15 @@ the reference does (:869-902).
 Dispatch is by the device of the tensors: CPU tensors run the plain PyTorch
 version (render/fast.py), CUDA tensors launch the kernel or raise. There is
 no fallback from one to the other. ``LAUNCHES`` counts kernel launches, so a
-caller can show that a run went through the kernel.
+caller can show that a run went through the kernel; launches in the prox mode
+(``prox=True``: the seed march that stops at the first entry into an
+occupied 8^3 brick, the reference's ``prox_stop``) count in ``LAUNCHES_PROX``
+instead.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -23,18 +27,22 @@ from ..core.flatten import Scene
 from ..core.types import Properties
 from ..render import fast
 from ..render.camera import Camera, ray_directions
-from ..render.renderer import _build_ray, _f32, _get, _March, _norm3, shade
+from ..render.renderer import _build_ray, _get, _March, shade
 
 LAUNCHES = 0  # kernel launches in this process (never incremented by the plain path)
+LAUNCHES_PROX = 0  # kernel launches in the prox mode
 
 _KMAX_MAT = 128
 
 
-def fused_march_plain(scene: Scene, s: _March, cfg: RenderConfig, time_s) -> Dict[str, torch.Tensor]:
+def fused_march_plain(scene: Scene, s: _March, cfg: RenderConfig, time_s,
+                      prox: bool = False) -> Dict[str, torch.Tensor]:
     """The kernel's plain PyTorch version: fast_march, then the shadow march
-    on the lanes that ``shade`` reads it on."""
+    on the lanes that ``shade`` reads it on. ``mat0`` is the start cell's
+    real material in the prox mode too."""
+    _check_prox(cfg, prox)
     s, raw0, mat0 = fast.start_cell(scene, s)
-    s, _ = fast.fast_march(scene, s, cfg, cfg.max_steps, shadow=False, time_s=time_s)
+    s, _ = fast.fast_march(scene, s, cfg, cfg.max_steps, shadow=False, time_s=time_s, prox=prox)
     shad = torch.zeros_like(raw0)
     if cfg.enable_shadows:
         sun = torch.from_numpy(fast.sun_unit(cfg.sun_dir)).to(s.dir.device)
@@ -50,6 +58,12 @@ def fused_march_plain(scene: Scene, s: _March, cfg: RenderConfig, time_s) -> Dic
     }
 
 
+def _check_prox(cfg: RenderConfig, prox: bool):
+    if prox and (cfg.enable_materials or cfg.enable_shadows):
+        raise ValueError("fused_march: prox is a seed mode of the lean march "
+                         "(materials and shadows off)")
+
+
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device:
         raise ValueError(
@@ -60,8 +74,8 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"fused_march: {name} must be contiguous")
 
 
-def _launch(scene: Scene, s: _March, cfg: RenderConfig, time_s) -> Dict[str, torch.Tensor]:
-    global LAUNCHES
+def _launch(scene: Scene, s: _March, cfg: RenderConfig, time_s, prox: bool) -> Dict[str, torch.Tensor]:
+    global LAUNCHES, LAUNCHES_PROX
     from . import build
 
     lib = build.library("fused_march")
@@ -70,6 +84,10 @@ def _launch(scene: Scene, s: _March, cfg: RenderConfig, time_s) -> Dict[str, tor
     i32, f32 = torch.int32, torch.float32
     Sx, Sy, Sz = scene.shape3
     _check(scene.grid_enc, "grid_enc", torch.uint8, (Sx, Sy, Sz), dev)
+    march_grid = scene.grid_enc
+    if prox:
+        march_grid = scene.prox_enc
+        _check(march_grid, "prox_enc", torch.uint8, (Sx, Sy, Sz), dev)
     _check(scene.flags, "flags", i32, scene.flags.shape, dev)
     if scene.flags.ndim != 1 or scene.flags.shape[0] > _KMAX_MAT:
         raise ValueError(f"fused_march: flags must be 1-D with <= {_KMAX_MAT} entries")
@@ -95,7 +113,8 @@ def _launch(scene: Scene, s: _March, cfg: RenderConfig, time_s) -> Dict[str, tor
     sun = fast.sun_unit(cfg.sun_dir)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.fused_march_launch(
-        scene.grid_enc.data_ptr(), scene.flags.data_ptr(), scene.flags.shape[0],
+        scene.grid_enc.data_ptr(), march_grid.data_ptr(), int(prox),
+        scene.flags.data_ptr(), scene.flags.shape[0],
         Sx, Sy, Sz, int(scene.y_max),
         int(cfg.max_steps), int(cfg.shadow_steps),
         int(cfg.enable_materials), int(cfg.enable_shadows),
@@ -109,35 +128,44 @@ def _launch(scene: Scene, s: _March, cfg: RenderConfig, time_s) -> Dict[str, tor
         raise RuntimeError(
             f"fused_march kernel launch failed: {lib.kernel_error_string(err).decode()}"
         )
-    LAUNCHES += 1
+    if prox:
+        LAUNCHES_PROX += 1
+    else:
+        LAUNCHES += 1
     out["refl"] = out["refl"] != 0
     out["shad"] = out["shad"] != 0
     return out
 
 
-def fused_march_call(scene: Scene, s: _March, cfg: RenderConfig, time_s=None) -> Dict[str, torch.Tensor]:
+def fused_march_call(scene: Scene, s: _March, cfg: RenderConfig, time_s=None,
+                     prox: bool = False) -> Dict[str, torch.Tensor]:
     """Run the fused march on a ``fast._init_state`` state ``s``.
 
     Returns the per-ray dict of the reference ``fused_march_call`` (:793-804):
     mat0, mat, cell, la, refl, shad, steps, dir, step, seg_origin, lt,
     color_mod. CPU tensors run the plain version; CUDA tensors launch the
-    kernel (or raise).
+    kernel (or raise). ``prox`` is the reference's ``prox_stop`` (lean
+    configs only): each ray stops at its first entry into an occupied 8^3
+    brick, with ``mat`` 1 where that cell is air.
     """
+    _check_prox(cfg, prox)
     if time_s is None:
         time_s = cfg.time
     dev = s.cell.device
     if scene.device != dev:
         raise ValueError(f"fused_march: scene on {scene.device}, rays on {dev}")
     if dev.type == "cpu":
-        return fused_march_plain(scene, s, cfg, time_s)
+        return fused_march_plain(scene, s, cfg, time_s, prox)
     if dev.type != "cuda":
         raise ValueError(f"fused_march: unsupported device {dev}")
-    return _launch(scene, s, cfg, float(time_s))
+    return _launch(scene, s, cfg, float(time_s), prox)
 
 
-def render_rays_fused(scene: Scene, origin, dirs, cfg: RenderConfig, start_t=None, time_s=None):
+def render_rays_fused(scene: Scene, origin, dirs, cfg: RenderConfig, start_t=None, time_s=None,
+                      prox: bool = False):
     """Fused-march render of arbitrary rays -> (rgb [N,3], aux), shaded by the
-    shared ``renderer.shade`` on the kernel's outputs."""
+    shared ``renderer.shade`` on the kernel's outputs (``prox``: see
+    ``fused_march_call``)."""
     f32 = torch.float32
     dev = scene.device
     origin = torch.as_tensor(origin, dtype=f32, device=dev)
@@ -147,7 +175,7 @@ def render_rays_fused(scene: Scene, origin, dirs, cfg: RenderConfig, start_t=Non
         time_s = cfg.time
 
     s = fast._init_state(origin, dirs, torch.ones(N, dtype=f32, device=dev), start_t=start_t)
-    return shade_outputs(scene, fused_march_call(scene, s, cfg, time_s), cfg)
+    return shade_outputs(scene, fused_march_call(scene, s, cfg, time_s, prox), cfg)
 
 
 def shade_outputs(scene: Scene, o: Dict[str, torch.Tensor], cfg: RenderConfig):
@@ -187,13 +215,17 @@ def render_image_fused(scene: Scene, camera: Camera, cfg: RenderConfig, time_s=N
     return fast.crosshair(col.reshape(cfg.height, cfg.width, 3), cfg)
 
 
-def hit_seeds(scene: Scene, origin, dirs, cfg: RenderConfig, margin: float, start_t=None):
+@torch.no_grad()
+def hit_seeds(scene: Scene, origin, dirs, cfg: RenderConfig, margin: float, start_t=None,
+              prox: bool = False):
     """Window seeds from one lean march: ``margin`` cells before each ray's
-    first solid hit, or the 1e6 sky sentinel (``render/diff.py`` MISS_SEED_MIN)."""
-    _, aux = render_rays_fused(scene, origin, dirs, cfg, start_t=start_t)
+    first solid hit (with ``prox``, its first occupied 8^3 brick), or the 1e6
+    sky sentinel (``render/diff.py`` MISS_SEED_MIN)."""
+    from ..render.progressive import seeds_from_hits
+
+    _, aux = render_rays_fused(scene, origin, dirs, cfg, start_t=start_t, prox=prox)
     o = torch.as_tensor(origin, dtype=torch.float32, device=scene.device)
-    t_hit = _norm3(aux["hit_pos"] - (o if o.ndim == 2 else o[None, :]))
-    return torch.where(aux["hit"], torch.clamp(t_hit - margin, min=0.0), _f32(1e6, t_hit))
+    return seeds_from_hits(aux, o, margin, start_t)
 
 
 def seed_depth_fused(scene: Scene, origin, dirs, image_hw, coarse_factor: int = 4,
@@ -201,30 +233,17 @@ def seed_depth_fused(scene: Scene, origin, dirs, image_hw, coarse_factor: int = 
     """Window-seed depths from the fused march (``seed_depth_fused``,
     ``raytracing_test_tpu/kernels/fused_march.py:905``): a 1/coarse_factor
     resolution lean march seeds a full-resolution lean march whose
-    first-solid depths, less ``margin``, become the window seeds (1e6 = sky).
+    first-solid depths, less ``margin``, become the window seeds (1e6 = sky;
+    ``progressive.guided_seeds``).
 
-    ``prox`` (stop at the first surface-brick entry) needs the march kernel's
-    prox_stop mode, which is not ported yet (ROADMAP.md, queue item 5).
+    ``prox``: both passes stop at the first entry into an occupied 8^3 brick
+    (the march's prox mode), so a seed may lie short of the surface; the
+    caller patches the rays whose window then ends unsaturated
+    (``render/diff.py:render_rays_guided_prox``). Use a small ``margin``
+    (0.5) with it.
     """
     from ..render import progressive
 
-    if prox:
-        raise NotImplementedError(
-            "seed_depth_fused(prox=True): the march kernel's prox_stop mode is not "
-            "ported yet; see ROADMAP.md, 'Modules to port', item 5"
-        )
-    H, W = image_hw
-    cf = coarse_factor
-    dev = scene.device
-    origin = torch.as_tensor(origin, dtype=torch.float32, device=dev)
-    dirs = torch.as_tensor(dirs, dtype=torch.float32, device=dev)
-    if origin.ndim != 1:
-        raise ValueError("seed_depth_fused: camera images share one origin")
-    kw = {} if max_steps is None else {"max_steps": max_steps}
-    rc = RenderConfig(width=W // cf, height=H // cf,
-                      enable_materials=False, enable_shadows=False, **kw)
-    rn = RenderConfig(width=W, height=H, enable_materials=False, enable_shadows=False, **kw)
-    cdirs = dirs.reshape(H, W, 3)[cf // 2::cf, cf // 2::cf].reshape(-1, 3).contiguous()
-    depth = hit_seeds(scene, origin, cdirs, rc, margin=0.0)
-    st = progressive.seed_from_depth(depth.reshape(H // cf, W // cf), cf, H, W)
-    return hit_seeds(scene, origin, dirs, rn, margin=margin, start_t=st)
+    march = functools.partial(render_rays_fused, prox=prox)
+    return progressive.guided_seeds(march, scene, origin, dirs, margin, image_hw, coarse_factor,
+                                    max_steps)

@@ -2,11 +2,14 @@
 
 Port of the single-device subset of ``raytracing_test_tpu/parallel/sharding.py``:
 the fit parameters (``FitParams`` :61, ``params_to_scene`` :68,
-``init_params`` :75), the occupancy guide (``guide_scene_from_params`` :89)
-and ``make_train_step_fused`` (:156): seed march on the guide (the lean
+``init_params`` :75), the occupancy guide (``guide_scene_from_params`` :89),
+``make_train_step_fused`` (:156): seed march on the guide (the lean
 fused march), the 24-step window render (the window kernel pair), MSE loss,
-backward and an Adam step. Data parallelism (the reference's ``shard_map`` +
-``pmean``) waits for ROADMAP.md, queue item 9.
+backward and an Adam step, all through ``render/diff.py:
+render_rays_diff_guided``; ``make_train_step_guided`` (:117) is the same
+step on one device, and its name here. Data parallelism
+(the reference's ``shard_map`` + ``pmean`` and sharding annotations) waits
+for ROADMAP.md, queue item 9.
 
 ``params_from_jax`` and ``adam_state_from_optax`` carry weights and optimizer
 state across from the JAX package as numpy arrays (checkpoints, tests).
@@ -18,14 +21,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import RenderConfig
 from ..core.color import rgb_to_u64
 from ..core.flatten import Scene, scene_from_grid
 from ..core.tree import Palette
 from ..core.types import Block
-from ..kernels.fused_march import hit_seeds
-from ..kernels.fused_window import render_window_fused
-from ..render.diff import DiffScene
+from ..render.diff import DiffScene, render_rays_diff_guided
 
 
 class FitParams(nn.Module):
@@ -108,28 +108,31 @@ def guide_scene_from_params(params: FitParams, tau: float = 1.0,
 
 
 def make_train_step_fused(params: FitParams, optimizer: torch.optim.Optimizer,
-                          guide_scene: Scene, num_steps: int = 24, shading: bool = False,
+                          guide_scene: Scene = None, num_steps: int = 24, shading: bool = False,
                           shadow_steps: int = 0):
     """One training step on the fused engines: ``train_step(origins, dirs,
-    targets, guide=None) -> (loss, aux)``. The seed march runs on ``guide``
-    (default ``guide_scene``), so re-thresholded guides swap in per call;
-    ``aux`` holds the reference's ``n_escaped`` (0) and ``grads_dropped``
-    (False)."""
+    targets, guide=None) -> (loss, aux)``. It renders through
+    ``render_rays_diff_guided``: the lean seed march on ``guide`` (default
+    ``guide_scene``; re-thresholded guides swap in per call), margin 3, no
+    coarse pass, then the window kernel pair; MSE, backward, Adam. ``aux``
+    holds the reference's ``n_escaped`` (0) and ``grads_dropped`` (False):
+    the port's window has no escapes.
+
+    On one device the reference's ``make_train_step_guided`` (:117) computes
+    the same step on its XLA accumulators; here it is this function."""
 
     def train_step(origins, dirs, targets, guide=None):
         g = guide_scene if guide is None else guide
-        cfg = RenderConfig(width=1, height=dirs.shape[0], enable_materials=False,
-                           enable_shadows=False)
-        with torch.no_grad():
-            seed = hit_seeds(g, origins, dirs, cfg, margin=3.0)
         optimizer.zero_grad(set_to_none=True)
-        rgb, waux = render_window_fused(
-            params_to_scene(params), origins, dirs, num_steps=num_steps, sky=False,
-            start_t=seed, shading=shading, shadow_steps=shadow_steps, return_aux=True)
+        rgb = render_rays_diff_guided(params_to_scene(params), g, origins, dirs,
+                                      num_steps=num_steps, sky=False, shading=shading,
+                                      shadow_steps=shadow_steps)
         loss = torch.mean((rgb - targets) ** 2)
         loss.backward()
         optimizer.step()
-        return loss.detach(), {"n_escaped": waux["n_escaped"],
-                               "grads_dropped": waux["grads_dropped"]}
+        return loss.detach(), {"n_escaped": 0, "grads_dropped": False}
 
     return train_step
+
+
+make_train_step_guided = make_train_step_fused

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
-from ..core.flatten import Scene
+from ..core.flatten import PROX_AIR, Scene
 from ..core.types import Properties
 from .camera import Camera, ray_directions
 from .renderer import (
@@ -45,15 +45,17 @@ def sun_unit(sun_dir) -> np.ndarray:
     return s / np.sqrt(s[0] * s[0] + s[1] * s[1] + s[2] * s[2])
 
 
-def _gather_enc(scene: Scene, cell):
-    """The one load: distance-encoded voxel value at integer cells. Wraps
-    &1023; outside the window reads as air with the minimal licence (129)."""
+def _gather_enc(scene: Scene, cell, prox: bool = False):
+    """The one load: distance-encoded voxel value at integer cells, from
+    ``grid_enc`` (or ``prox_enc`` with ``prox``). Wraps &1023; outside the
+    window reads as air with the minimal licence (129)."""
     Sx, Sy, Sz = scene.shape3
     c = cell & 1023
     inside = (c[:, 0] < Sx) & (c[:, 1] < Sy) & (c[:, 2] < Sz)
     lin = (c[:, 0] * Sy + c[:, 1]) * Sz + c[:, 2]
     lin = torch.where(inside, lin, torch.zeros_like(lin))
-    v = torch.take(scene.grid_enc, lin.long()).to(torch.int32)
+    grid = scene.prox_enc if prox else scene.grid_enc
+    v = torch.take(grid, lin.long()).to(torch.int32)
     return torch.where(inside, v, torch.full_like(v, 129))
 
 
@@ -97,15 +99,20 @@ def _aabb_advance_bounds(s: _March, lo, hi, mask, budget):
     )
 
 
-def _march_body(scene: Scene, s: _March, enc, cfg: RenderConfig, budget, shadow: bool, time_s):
+def _march_body(scene: Scene, s: _March, enc, cfg: RenderConfig, budget, shadow: bool, time_s,
+                prox: bool = False):
     """One march iteration: process the current cell (materials / hit), apply
     the exit rules, then advance air lanes through their certified empty box
-    (a plain DDA step when the box is a single cell)."""
+    (a plain DDA step when the box is a single cell). With ``prox``, ``enc``
+    is from ``prox_enc``: every value < 128 is a stop cell, and its air cells
+    (``PROX_AIR``) report material 1 (``fused_march.py:461-472``)."""
     Sx, Sy, Sz = scene.shape3
     active = ~s.done
 
     # ---- current-cell processing
     mat = torch.where(enc < 128, enc, torch.zeros_like(enc))
+    if prox:
+        mat = torch.where(enc == PROX_AIR, torch.ones_like(mat), mat)
     fl = scene.flags[mat.long()]
     if shadow:
         liquid = (fl & int(Properties.LIQUID)) > 0
@@ -148,12 +155,16 @@ def _march_body(scene: Scene, s: _March, enc, cfg: RenderConfig, budget, shadow:
 
 
 def fast_march(scene: Scene, state: _March, cfg: RenderConfig, budget: int,
-               shadow: bool = False, time_s=None):
-    """March every lane until it is done. Returns (state, iterations)."""
+               shadow: bool = False, time_s=None, prox: bool = False):
+    """March every lane until it is done. Returns (state, iterations).
+
+    ``prox`` (lean primary march only) stops each lane at its first entry
+    into an occupied 8^3 brick: the march reads ``scene.prox_enc``, while
+    ``y_max`` and the sky rule stay those of the real scene."""
     i = 0
     while i < _ITER_CAP and bool((~state.done).any()):
-        enc = _gather_enc(scene, state.cell)
-        state = _march_body(scene, state, enc, cfg, budget, shadow, time_s)
+        enc = _gather_enc(scene, state.cell, prox)
+        state = _march_body(scene, state, enc, cfg, budget, shadow, time_s, prox)
         i += 1
     return state, i
 

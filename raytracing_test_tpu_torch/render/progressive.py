@@ -2,13 +2,37 @@
 
 Port of ``seed_from_depth`` (``raytracing_test_tpu/render/progressive.py:43``),
 the step that turns a 1/factor-resolution depth image into per-ray seeds
-(the reference shaders' mid_res 8-neighbour minimum, mid_res.frag:211-217).
-``kernels/fused_march.py:seed_depth_fused`` runs the two marches around it.
+(the reference shaders' mid_res 8-neighbour minimum, mid_res.frag:211-217),
+``seeds_from_hits``, the window seeds of a hard march, and ``guided_seeds``,
+the coarse-then-full scheme around a given march
+(``kernels/fused_march.py:seed_depth_fused`` on the fused march).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..config import RenderConfig
+from .renderer import _f32, _norm3
+
+FAR_SEED = 1e5  # seed_from_depth's cap: every coarse neighbour of the ray saw sky
+
+
+def seeds_from_hits(aux, origin, margin: float, start_t=None):
+    """Window seeds from a hard march's aux: ``margin`` before each ray's hit
+    point (from ``origin``), or the 1e6 sky sentinel.
+
+    A ray started at ``FAR_SEED`` starts 1e5 cells out, far beyond any grid,
+    where only the &1023 wrap of its start cell can make a hit, on a cell
+    that is nowhere near the ray: it is sky. (The reference reports such a
+    hit, at 1e5, and its window then renders the wrapped cells; ROADMAP.md,
+    faults.)"""
+    o = origin if origin.ndim == 2 else origin[None, :]
+    t_hit = _norm3(aux["hit_pos"] - o)
+    seed = torch.where(aux["hit"], torch.clamp(t_hit - margin, min=0.0), _f32(1e6, t_hit))
+    if start_t is not None:
+        seed = torch.where(start_t >= FAR_SEED, _f32(1e6, seed), seed)
+    return seed
 
 
 def seed_from_depth(depth, factor: int, H: int, W: int, margin: float = 2.0):
@@ -23,4 +47,36 @@ def seed_from_depth(depth, factor: int, H: int, W: int, margin: float = 2.0):
     seeds = seeds.repeat_interleave(factor, dim=0).repeat_interleave(factor, dim=1)
     seeds = seeds[:H, :W]
     # never skip past the far sentinel
-    return torch.clamp(seeds, max=1e5).reshape(H * W)
+    return torch.clamp(seeds, max=FAR_SEED).reshape(H * W)
+
+
+@torch.no_grad()
+def guided_seeds(hard_render, scene, origin, dirs, margin: float, image_hw=None,
+                 coarse_factor: int = 4, max_steps: int = None):
+    """Window seeds from a lean hard march: ``margin`` before each ray's first
+    hit, 1e6 for sky (``render/diff.py:render_rays_diff_guided``'s scheme,
+    reference :497-528; ``seed_depth_fused``). ``hard_render(scene, origin,
+    dirs, cfg, start_t=None) -> (rgb, aux)`` is the march. With
+    ``image_hw=(H, W)`` (the rays form one camera's image) the march is
+    seeded by a 1/coarse_factor depth pass through ``seed_from_depth``."""
+    f32 = torch.float32
+    origin = torch.as_tensor(origin, dtype=f32, device=scene.device)
+    dirs = torch.as_tensor(dirs, dtype=f32, device=scene.device)
+    kw = dict(enable_materials=False, enable_shadows=False)
+    if max_steps is not None:
+        kw["max_steps"] = max_steps
+    start_t = None
+    if image_hw is not None:
+        H, W = image_hw
+        cf = coarse_factor
+        if H % cf or W % cf:
+            raise ValueError(f"image_hw {image_hw} must be divisible by coarse_factor {cf}")
+        if origin.ndim != 1:
+            raise ValueError("guided_seeds: camera images share one origin")
+        cdirs = dirs.reshape(H, W, 3)[cf // 2::cf, cf // 2::cf].reshape(-1, 3).contiguous()
+        _, caux = hard_render(scene, origin, cdirs, RenderConfig(width=W // cf, height=H // cf, **kw))
+        depth = seeds_from_hits(caux, origin, 0.0)
+        start_t = seed_from_depth(depth.reshape(H // cf, W // cf), cf, H, W)
+    _, aux = hard_render(scene, origin, dirs, RenderConfig(width=1, height=dirs.shape[0], **kw),
+                         start_t=start_t)
+    return seeds_from_hits(aux, origin, margin, start_t)

@@ -58,15 +58,8 @@ def test_seed_from_depth_matches_jax():
         np.testing.assert_array_equal(got, want)
 
 
-def test_seed_depth_fused_matches_jax_fast_path():
-    """seed_depth_fused's two lean marches against the same scheme on the JAX
-    fast path (the port's march is the plain version on CPU)."""
-    grid, pal = terrain.gen_world_grid(world_for_size(48))
-    js, ts = jflat.scene_from_grid(grid, pal), tflat.scene_from_grid(grid, pal, "cpu")
-    H = W = 32
-    jc = JCamera(pos=jnp.asarray([24.0, 55.0, -6.0], jnp.float32),
-                 dir=jnp.asarray([0.2, -0.6, 0.8], jnp.float32))
-    dirs = jrays(jc, W, H)
+def _jax_seed_depth(js, jc, dirs, H, W, margin):
+    """seed_depth_fused's scheme on the JAX fast path."""
     lean = dict(enable_materials=False, enable_shadows=False)
     cdirs = dirs.reshape(H, W, 3)[2::4, 2::4].reshape(-1, 3)
     _, caux = _jit_fast(js, jc.pos, cdirs, cfg=RenderConfig(width=8, height=8, **lean))
@@ -74,15 +67,41 @@ def test_seed_depth_fused_matches_jax_fast_path():
     st = jprog.seed_from_depth(jnp.where(caux["hit"], ct, 1e6).reshape(8, 8), 4, H, W)
     _, aux = _jit_fast(js, jc.pos, dirs, cfg=RenderConfig(width=W, height=H, **lean), start_t=st)
     t_hit = jnp.linalg.norm(aux["hit_pos"] - jc.pos[None, :], axis=1)
-    want = np.asarray(jnp.where(aux["hit"], jnp.maximum(t_hit - 3.0, 0.0), 1e6))
+    return np.asarray(jnp.where(aux["hit"], jnp.maximum(t_hit - margin, 0.0), 1e6))
+
+
+@pytest.mark.parametrize("prox", [False, True])
+def test_seed_depth_fused_matches_jax_fast_path(prox):
+    """seed_depth_fused's two lean marches against the same scheme on the JAX
+    fast path (the port's march is the plain version on CPU). The prox mode
+    is the fast path on the grid whose occupied 8^3 bricks are filled, with
+    the real y_max (the reference's prox_stop kernel equals that;
+    tests/test_torch_prox.py holds it against the kernel itself). A ray
+    seeded at the coarse pass's far cap is sky in the port and not in the
+    reference (test_torch_prox.py:test_far_cap_seed_is_sky); no ray of
+    this view is seeded there."""
+    grid, pal = terrain.gen_world_grid(world_for_size(48))
+    js, ts = jflat.scene_from_grid(grid, pal), tflat.scene_from_grid(grid, pal, "cpu")
+    margin = 0.5 if prox else 3.0
+    if prox:
+        B = tuple(d // 8 for d in grid.shape)
+        occ = grid.reshape(B[0], 8, B[1], 8, B[2], 8).any(axis=(1, 3, 5))
+        stop = np.repeat(np.repeat(np.repeat(occ, 8, 0), 8, 1), 8, 2)
+        filled = np.where(grid > 0, grid, np.where(stop, 1, 0)).astype(np.uint8)
+        js = jflat.scene_from_grid(filled, pal)._replace(y_max=js.y_max)
+    H = W = 32
+    jc = JCamera(pos=jnp.asarray([24.0, 55.0, -6.0], jnp.float32),
+                 dir=jnp.asarray([0.2, -0.6, 0.8], jnp.float32))
+    dirs = jrays(jc, W, H)
+    want = _jax_seed_depth(js, jc, dirs, H, W, margin)
 
     got = tfm.seed_depth_fused(ts, torch.tensor([24.0, 55.0, -6.0]),
-                               torch.from_numpy(np.array(dirs)), (H, W)).numpy()
-    assert (want >= 1e6).any() and (want < 1e6).any()
+                               torch.from_numpy(np.array(dirs)), (H, W), margin=margin,
+                               prox=prox).numpy()
+    # with prox, this view's sky rays all graze the air of a surface brick
+    assert (want < 1e6).any() and (want >= 1e6).any() != prox
     close = np.abs(got - want) <= 1e-4 * np.maximum(1.0, np.abs(want))
     assert close.mean() >= 0.99, close.mean()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tfm.seed_depth_fused(ts, torch.zeros(3), torch.ones((H * W, 3)), (H, W), prox=True)
 
 
 def test_params_to_scene_and_init_match_jax():
