@@ -6,21 +6,31 @@ frames, training steps, timing.
 Phases (any failure raises, and the script exits non-zero):
 
   1. device  -- the card's name and power limit; no CUDA means exit 2.
-  2. build   -- one nvcc per raytracing_test_tpu_torch/csrc/*.cu, all at once.
+  2. build   -- one nvcc per raytracing_test_tpu_torch/csrc/*.cu, all at once;
+                each kernel's registers, stack and spills (-Xptxas -v).
   3. world   -- the default WorldConfig world (200x200 columns in a
                 256x128x256 grid) as a Scene on the card.
   4. parity  -- at 1024x1024 the CUDA kernel against its plain PyTorch version
                 on the same card and inputs: full-feature and lean from the
                 bench camera, and a water view with mirror and glass blocks
                 at time 1.2; and the CLI's default view at its 512x512
-                frame size. Contract (tests/test_render_parity.py
-                assert_images_close): |diff| <= 1e-5 on >= 99% of pixels;
-                mat and cell equal on >= 99.9% of rays.
+                frame size. Contract: every output of the march equal to
+                the bit (integer fields equal, float fields bit-equal), and
+                the shaded images within tests/test_render_parity.py
+                assert_images_close (|diff| <= 1e-5 on >= 99% of pixels).
   5. frames  -- the port's CLI, in-process: ``render`` at its defaults, then
                 ``animate --frames 4``. The kernel's launch count is reset
                 just before and must rise by at least one per frame.
-  6. timing  -- CUDA events after warm-up, 1024x1024: kernel and plain
-                version ms per frame, rays/s, full-feature and lean.
+  6. timing  -- the march: blocks per SM and the nvcc register report;
+                kernel ms (CUDA events on raw launches of fixed inputs,
+                after warm-up) at the shapes the main paths launch (1024^2
+                full, full without shadows and lean; the 512^2 render
+                frame; the 256^2 coarse seed pass; a 64^2 target view of the
+                fit), each with its lane efficiency (trips of live lanes over
+                32 x the warps' trips: from the plain loop's per-ray trips
+                for one ray per thread in natural order and in 8x4 tiles,
+                and as counted by the persistent kernel); at 1024^2 the
+                wrapper's ms, the plain version's and the whole frame's.
   7. train   -- the training slice at the bench shapes (default world,
                 solid_density 50, bench camera, 1024x1024 rays, 24 steps):
                 a. seed: seed_depth_fused (coarse x4 then full-resolution lean
@@ -39,8 +49,12 @@ Phases (any failure raises, and the script exits non-zero):
                    with the share of the brick fields it now builds;
                 e. timing: seed, window_fwd, window_bwd, the whole
                    loss+backward, rays/s, the plain versions' times and the
-                   peak device memory of a train step. The kernels' launch
-                   counts are reset just before c and read just after d.
+                   peak device memory of a train step; window_bwd's kernel
+                   alone and its gradient zero-fill alone, its occupancy and
+                   its gradient row updates, at 1024^2 and at the train
+                   batches (16384 and the CLI fit's 8192 rays). The
+                   kernels' launch counts are reset just before c and read
+                   just after d.
   8. bricks  -- the brick engine (kernels/brick_kernels.py, csrc/brick_march.cu)
                 on the default world at 1024x1024 from the bench camera:
                 a. kernel parity: brick_fine and brick_advance against
@@ -66,7 +80,9 @@ Phases (any failure raises, and the script exits non-zero):
                    checked), the brick frame against the fused frame and the
                    plain brick frame, and one torch.profiler pass over the
                    brick frame;
-                e. bounds of those two launches from their data.
+                e. bounds of those two launches from their data, and the
+                   same two launches (parity, time, bound) at the CLI brick
+                   frame's 512^2 view.
   9. prox   -- the march's prox mode (the seed march that stops at the first
                 entry into an occupied 8^3 brick) and the prox-seeded window
                 render, on the default world at 1024x1024 from the bench
@@ -106,6 +122,11 @@ Phases (any failure raises, and the script exits non-zero):
                    loss+backward against the exact-seed pipeline's, and the
                    prox kernel's bound from this run's data.
 
+After phase 9 the kernels are ordered by the time they lose on the main
+paths: launches x (ms - bound) at the shape each launch has (512^2 frames,
+64^2 target views, the train batches' seeds and window pairs, the 512^2
+brick frame's launches, both prox passes).
+
 The line before the last holds the card's name and power limit, the one
 before it the per-kernel JSON (time, launches, plain time and the bound:
 the larger of the bytes the kernel must move over 3.35 TB/s and its float32
@@ -138,6 +159,7 @@ PROX_RGB_TOL, PROX_GRAD_TOL = 2e-3, 5e-3
 NUM_STEPS = 24  # bench.py's window length
 SOLID_DENSITY = 50.0  # bench.py's diff scene
 TRAIN_BATCH = 16384
+CLI_BATCH = 8192  # the fit verb's default batch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 # float32 operations each unit of work needs at the least (for the bound):
@@ -231,6 +253,7 @@ def parity(name, scene, s, rcfg, time_s, side):
           f"hit {float((ok['mat'] != 0).float().mean()):.4f}")
     if bad > MAX_BAD_FRAC or mat_eq < MIN_EQ_FRAC or cell_eq < MIN_EQ_FRAC:
         raise AssertionError(f"{name}: kernel disagrees with the plain version")
+    march_parity(f"{name} march outputs", ok, op, card_line())
     return float(d.max()), ok
 
 
@@ -249,6 +272,92 @@ def window_rows(cell, tmax, istep, abs_delta, shape3) -> int:
             cell = torch.where(oh, cell + istep, cell)
             tmax = torch.where(oh, tmax + abs_delta, tmax)
     return int(torch.unique(torch.cat(rows)).numel())
+
+
+def march_trips(scene, s, rcfg, time_s, prox=False):
+    """Per-ray trips of the primary and the shadow loop ([N] int32 each),
+    counted on the plain version: a ray takes one trip in each iteration of
+    the plain loop that finds it live, as the kernel's loop does."""
+    from raytracing_test_tpu_torch.kernels import fused_march as fm
+    from raytracing_test_tpu_torch.render import fast
+
+    calls, plain_loop = [], fast.fast_march
+
+    def counting(scene_, state, cfg_, budget, shadow=False, time_s=None, prox=False):
+        trips = torch.zeros(state.cell.shape[0], dtype=torch.int32, device=state.cell.device)
+        i = 0
+        while i < fast._ITER_CAP and bool((~state.done).any()):
+            trips += (~state.done).to(torch.int32)
+            enc = fast._gather_enc(scene_, state.cell, prox)
+            state = fast._march_body(scene_, state, enc, cfg_, budget, shadow, time_s, prox)
+            i += 1
+        calls.append(trips)
+        return state, i
+
+    fast.fast_march = counting
+    try:
+        fm.fused_march_plain(scene, s, rcfg, time_s, prox)
+    finally:
+        fast.fast_march = plain_loop
+    return calls[0], calls[1] if len(calls) > 1 else torch.zeros_like(calls[0])
+
+
+def natural_order(n: int) -> torch.Tensor:
+    """Ray of each thread when thread i runs ray i (-1: no ray)."""
+    pad = -n % 32
+    return torch.cat([torch.arange(n), torch.full((pad,), -1, dtype=torch.int64)])
+
+
+def tile_order_for(n: int, width: int, tile_w: int = 8) -> torch.Tensor:
+    """Ray of each thread of a launch in warp tiles tile_w wide over a
+    row-major image ``width`` wide (natural order when the rays are no such
+    image)."""
+    from raytracing_test_tpu_torch.kernels import fused_march as fm
+
+    if not width or n % width:
+        return natural_order(n)
+    return fm.tile_order(width, n // width, tile_w)
+
+
+def lane_efficiency(p_trips, s_trips, order) -> dict:
+    """Sum of trips / (32 x sum over warps of the warp's longest trip count),
+    warps formed by ``order`` (32 threads each), for the primary loop, the
+    shadow loop and the two run one after the other (a one-ray-per-thread
+    launch)."""
+    valid = (order >= 0).to(p_trips.device)
+    idx = order.clamp(min=0).to(p_trips.device)
+    pp = torch.where(valid, p_trips[idx], 0).reshape(-1, 32).to(torch.int64)
+    ss = torch.where(valid, s_trips[idx], 0).reshape(-1, 32).to(torch.int64)
+
+    def eff(*xs):
+        work = sum(float(x.sum()) for x in xs)
+        lanes = 32 * sum(float(x.max(dim=1).values.sum()) for x in xs)
+        return work / lanes if lanes else 1.0
+
+    return {"primary": eff(pp), "shadow": eff(ss), "whole": eff(pp, ss)}
+
+
+def window_row_updates(cell, tmax, istep, abs_delta, shape3) -> dict:
+    """Gradient row updates of window_bwd over its S steps, from the plain
+    DDA's cells: one per (warp of 32 rays in natural order, step, distinct
+    in-grid row), and as many per block of 128 rays (a block-level
+    aggregation); and the in-grid samples."""
+    from raytracing_test_tpu_torch.render.diff import _window_lin
+    from raytracing_test_tpu_torch.render.renderer import _argmin_axis
+
+    ray = torch.arange(cell.shape[0], device=cell.device)
+    out = {"row_updates_per_warp": 0, "row_updates_per_block128": 0, "samples_in_grid": 0}
+    with torch.no_grad():
+        for _ in range(NUM_STEPS):
+            lin, inside = _window_lin(shape3, cell)
+            rows, rays = lin[inside], ray[inside]
+            out["samples_in_grid"] += int(rows.numel())
+            for key, group in (("row_updates_per_warp", 32), ("row_updates_per_block128", 128)):
+                out[key] += int(torch.unique((rays // group) * (1 << 24) + rows).numel())
+            oh = torch.nn.functional.one_hot(_argmin_axis(tmax).long(), 3).to(torch.bool)
+            cell = torch.where(oh, cell + istep, cell)
+            tmax = torch.where(oh, tmax + abs_delta, tmax)
+    return out
 
 
 def window_grads(render, ds, cam, dirs, seed, **kw):
@@ -321,12 +430,167 @@ def profile_step(fn, card, steps: int = 5, label: str = "train step (loss+backwa
     return per_name
 
 
+def raw_march_ms(scene, s, rcfg, image_w, prox=False, reps=20):
+    """(ms, bound) of one fused_march launch on fixed inputs and outputs (no
+    wrapper work on the host between launches), after warm-up. The bound is
+    phase 6's: the grid the loop reads and the palette flags once, 72 bytes
+    of rays in and 88 out per ray, three operations per primary crossing."""
+    from raytracing_test_tpu_torch.kernels import fused_march as fm
+
+    fn, args, out, keep = fm._launch_args(scene, s, rcfg, 0.0, prox, image_w)
+
+    def launch():
+        if fn(*args) != 0:
+            raise AssertionError("a timing launch of fused_march failed")
+    ms = cuda_ms(launch, reps=reps, warmup=3)
+    n = s.cell.shape[0]
+    grid = scene.prox_enc if prox else scene.grid_enc
+    crossings = int(out["steps"].to(torch.int64).sum())
+    b = bound(grid.numel() + scene.flags.numel() * 4 + n * (72 + 88),
+              crossings * MARCH_OPS_PER_CROSSING)
+    del keep
+    return ms, b
+
+
+def march_phase(dev, card, side, scene, s_bench, o_full, full, lean, cli_state, cli_cfg):
+    """Phase 6: the march kernel at the shapes the main paths launch, its
+    occupancy and lane efficiency, the plain version and the whole frame.
+    Returns ({mode: (kernel ms, plain ms)} at side^2, bound of the full frame,
+    {shape: (kernel ms, bound ms)})."""
+    from raytracing_test_tpu_torch.app import fit
+    from raytracing_test_tpu_torch.config import RenderConfig, WorldConfig
+    from raytracing_test_tpu_torch.kernels import fused_march as fm
+    from raytracing_test_tpu_torch.render import fast
+    from raytracing_test_tpu_torch.render.camera import Camera, ray_directions
+
+    n = side * side
+    cf = 4
+    cam = Camera(pos=torch.tensor(BENCH_POS, device=dev), dir=torch.tensor(BENCH_DIR, device=dev))
+    dirs = ray_directions(cam, side, side)
+    cdirs = dirs.reshape(side, side, 3)[cf // 2::cf, cf // 2::cf].reshape(-1, 3).contiguous()
+    s_coarse = fast._init_state(cam.pos, cdirs, torch.ones(cdirs.shape[0], device=dev))
+    g = WorldConfig().grid_shape
+    ring = fit.ring_cameras((g[0] / 2, g[1] / 3, g[2] / 2), 0.8 * g[0], 0.9 * g[1], 8, device=dev)
+    tdirs = ray_directions(ring[0], 64, 64)
+    s_tgt = fast._init_state(ring[0].pos, tdirs, torch.ones(64 * 64, device=dev))
+    origins, rdirs, _ = fit.make_targets(scene, ring, 64)
+    idx = torch.from_numpy(np.random.default_rng(0).integers(0, origins.shape[0], TRAIN_BATCH))
+    b_dirs = rdirs[idx.to(dev)].contiguous()
+    s_batch = fast._init_state(origins[idx.to(dev)].contiguous(), b_dirs,
+                               torch.ones(TRAIN_BATCH, device=dev))
+    s_cli_batch = fast._init_state(origins[idx[:CLI_BATCH].to(dev)].contiguous(),
+                                   b_dirs[:CLI_BATCH].contiguous(), torch.ones(CLI_BATCH, device=dev))
+    no_shadow = RenderConfig(width=side, height=side, enable_shadows=False)
+    lean_kw = dict(enable_materials=False, enable_shadows=False)
+    print(f"march occupancy: {fm.occupancy()} (blocks per SM, cudaOccupancy"
+          f"MaxActiveBlocksPerMultiprocessor) | {card}")
+
+    # the launches of the main paths, at their shapes, each as its wrapper
+    # issues it (image width for the tiled ones)
+    shapes = [
+        (f"full {side}^2 (bench frame)", s_bench, full, side),
+        (f"full, shadows off {side}^2", s_bench, no_shadow, side),
+        (f"lean {side}^2 (seed fine pass)", s_bench, lean, side),
+        (f"full {cli_cfg.width}^2 (render/animate frame)", cli_state, cli_cfg, cli_cfg.width),
+        (f"lean {side // cf}^2 (seed coarse pass)", s_coarse,
+         RenderConfig(width=side // cf, height=side // cf, **lean_kw), side // cf),
+        ("materials 64^2 (a target view of the fit)", s_tgt,
+         RenderConfig(width=64, height=64, enable_shadows=False), 0),
+        (f"lean {TRAIN_BATCH} rays (a train step's seed)", s_batch,
+         RenderConfig(width=1, height=TRAIN_BATCH, **lean_kw), 0),
+        (f"lean {CLI_BATCH} rays (a CLI fit step's seed)", s_cli_batch,
+         RenderConfig(width=1, height=CLI_BATCH, **lean_kw), 0),
+    ]
+    raw = {}
+    for name, s, rcfg, w in shapes:
+        ms, b = raw_march_ms(scene, s, rcfg, w, reps=20 if s.cell.shape[0] >= 2**18 else 100)
+        p_trips, s_trips = march_trips(scene, s, rcfg, 0.0)
+        eff = {k: lane_efficiency(p_trips, s_trips, o)["whole"]
+               for k, o in (("natural", natural_order(s.cell.shape[0])),
+                            ("tiles", tile_order_for(s.cell.shape[0], w)))}
+        raw[name] = (ms, b[0])
+        print(f"timing fused_march {name}: kernel {ms:.4f} ms ({s.cell.shape[0] / ms * 1e3:.4e} "
+              f"rays/s), bound {b[0]:.4f} ms ({b[1]}), {'8x4 warp tiles' if w else 'natural order'}; "
+              f"lane efficiency "
+              f"(primary and shadow loops) in natural order {eff['natural']:.4f}, in 8x4 tiles "
+              f"{eff['tiles']:.4f}; trips per ray mean {float(p_trips.float().mean()):.2f} max "
+              f"{int(p_trips.max())}, shadow rays {int((s_trips > 0).sum())} | {card}")
+
+    times = {}
+    for name, rcfg in (("full", full), ("lean", lean)):
+        k_ms = raw[f"{name} {side}^2 (bench frame)" if name == "full"
+                   else f"lean {side}^2 (seed fine pass)"][0]
+        w_ms = cuda_ms(lambda: fm.fused_march_call(scene, s_bench, rcfg, 0.0, image_w=side),
+                       reps=20, warmup=3)
+        p_ms = cuda_ms(lambda: fm.fused_march_plain(scene, s_bench, rcfg, 0.0), reps=3, warmup=1)
+        f_ms = cuda_ms(lambda: fm.render_image_fused(scene, cam, rcfg, 0.0), reps=10, warmup=2)
+        times[name] = (k_ms, p_ms)
+        print(f"timing {name} {side}x{side}: kernel {k_ms:.4f} ms/frame ({n / k_ms * 1e3:.4e} "
+              f"rays/s), through its wrapper {w_ms:.4f} ms, plain {p_ms:.3f} ms/frame "
+              f"({n / p_ms * 1e3:.4e} rays/s), speedup {p_ms / k_ms:.1f}x, whole frame "
+              f"(rays+kernel+shade) {f_ms:.4f} ms | {card}")
+
+    # full-feature frame: grid_enc and palette flags read once, 72 bytes of
+    # rays in and 88 bytes out per ray; one march step per primary crossing
+    crossings = int(o_full["steps"].to(torch.int64).sum())
+    march_bytes = scene.grid_enc.numel() + scene.flags.numel() * 4 + n * (72 + 88)
+    march_bound = bound(march_bytes, crossings * MARCH_OPS_PER_CROSSING)
+    print(f"bound fused_march full {side}x{side}: {march_bytes} bytes, {crossings} primary "
+          f"crossings -> {march_bound[0]:.4f} ms ({march_bound[1]}), "
+          f"kernel at {march_bound[0] / times['full'][0]:.3f} of it | {card}")
+    return times, march_bound, raw
+
+
+def window_bounds(wargs):
+    """(forward bound, backward bound) of a window launch pair on these rays,
+    from phase 7e's formulas: per-ray planes, the field rows the windows
+    touch, and for the backward the zero-filled gradient field plus a
+    read-modify-write of every touched row."""
+    field, cell, tmax, istep, absd, shape3 = wargs[:6]
+    n, V = cell.shape[0], field.shape[0]
+    rows = window_rows(cell, tmax, istep, absd, shape3)
+    samples = n * NUM_STEPS
+    fwd_bytes = n * (48 + 24) + rows * 16
+    bwd_bytes = n * (48 + 32 + 24) + rows * 16 + V * 16 + rows * 32
+    return (bound(fwd_bytes, samples * WINDOW_FWD_OPS_PER_SAMPLE),
+            bound(bwd_bytes, samples * WINDOW_BWD_OPS_PER_SAMPLE), rows)
+
+
+def window_bwd_diagnosis(name, card, fw, wargs, g_surf, g_tend, surf, t_end):
+    """The window pair on one batch, as raw launches on fixed inputs:
+    window_fwd, window_bwd's kernel alone (into one zeroed gradient) and the
+    gradient's zero-fill alone, the occupancy, the gradient row updates (one float4 atomicAdd
+    each) from the plain DDA, and the bounds. Returns {kernel: (ms, bound
+    ms)}, window_bwd's ms with its zero-fill."""
+    fwd_fn, fwd_args, _ = fw._fwd_args(*wargs)
+    fn, args, grad, *_ = fw._bwd_args(*wargs, g_surf, g_tend, surf, t_end)
+
+    def launch(f, a):
+        if f(*a) != 0:
+            raise AssertionError("a timing launch of a window kernel failed")
+    n = wargs[1].shape[0]
+    reps = 20 if n >= 2**18 else 100
+    f_ms = cuda_ms(lambda: launch(fwd_fn, fwd_args), reps=reps, warmup=3)
+    k_ms = cuda_ms(lambda: launch(fn, args), reps=reps, warmup=3)
+    z_ms = cuda_ms(lambda: grad.zero_(), reps=reps, warmup=3)
+    upd = window_row_updates(*wargs[1:6])
+    fb, bb, rows = window_bounds(wargs)
+    print(f"timing window pair {name}: window_fwd {f_ms:.4f} ms (bound {fb[0]:.4f}, {fb[1]}); "
+          f"window_bwd kernel {k_ms:.4f} ms + zero-fill of the [V, 4] gradient {z_ms:.4f} ms "
+          f"(bound of both {bb[0]:.4f}, {bb[1]}); occupancy {fw.occupancy()}; {rows} rows "
+          f"touched, {upd['samples_in_grid']} in-grid samples, {upd['row_updates_per_warp']} "
+          f"row updates (one per warp, step and row), {upd['row_updates_per_block128']} if "
+          f"summed per block of 128 | {card}")
+    return {"window_fwd": (f_ms, fb[0]), "window_bwd": (k_ms + z_ms, bb[0])}
+
+
 def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
     from raytracing_test_tpu_torch.app import fit
     from raytracing_test_tpu_torch.config import WorldConfig
     from raytracing_test_tpu_torch.core.flatten import palette_arrays
     from raytracing_test_tpu_torch.parallel import sharding
     from raytracing_test_tpu_torch.render.camera import Camera, ray_directions
+    from raytracing_test_tpu_torch.render import progressive
     from raytracing_test_tpu_torch.render.diff import DiffScene, _pack_fields, diff_scene_from_grid
     from raytracing_test_tpu_torch.render.fast import sun_unit
 
@@ -397,7 +661,8 @@ def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
           f"{t_guide:.3f} s, of which the brick fields {time.perf_counter() - t0:.3f} s (host)")
 
     # e. timing at the bench shapes (1024^2 rays x 24 steps)
-    out = {"march_launches": march_launches}
+    out = {"march_launches": march_launches, "seeds": counts["window_fwd"],
+           "steps": {TRAIN_BATCH: len(losses), CLI_BATCH: counts["window_fwd"] - len(losses)}}
     field = _pack_fields(ds)
     _, _, cell, tmax, istep, absd = fw.window_inputs(shape3, cam.pos, dirs, seed)
     sun = sun_unit((2.0, 1.0, 4.0))
@@ -408,6 +673,22 @@ def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
     seed_ms = cuda_ms(lambda: fm.seed_depth_fused(scene, cam.pos, dirs, (side, side)), reps=10, warmup=2)
     fwd_ms = cuda_ms(lambda: fw._launch_fwd(*wargs), reps=20, warmup=3)
     bwd_ms = cuda_ms(lambda: fw._launch_bwd(*wargs, g_surf, g_tend, surf, t_end), reps=20, warmup=3)
+    window_bwd_diagnosis(f"{side}^2 x {NUM_STEPS} (bench seeds)", card, fw, wargs, g_surf, g_tend,
+                         surf, t_end)
+    # the train path's batches: rays of the fit's ring views, seeded on the scene
+    rng = np.random.default_rng(1)
+    out["batches"] = {}
+    for nb in (TRAIN_BATCH, CLI_BATCH):
+        idx = torch.from_numpy(rng.integers(0, origins.shape[0], nb)).to(dev)
+        o_b, d_b = origins[idx].contiguous(), rdirs[idx].contiguous()
+        sd = progressive.guided_seeds(fm.render_rays_fused, scene, o_b, d_b, 3.0)
+        _, _, bc, bt, bi, ba = fw.window_inputs(shape3, o_b, d_b, sd)
+        bargs = (field, bc, bt, bi, ba, shape3, sun, NUM_STEPS, False)
+        b_surf, b_tend, _, _ = fw._launch_fwd(*bargs)
+        out["batches"][nb] = window_bwd_diagnosis(
+            f"{nb} x {NUM_STEPS} (a train batch)", card, fw, bargs,
+            torch.full((nb, 3), 1.0 / (3 * nb), device=dev), torch.zeros(nb, device=dev),
+            b_surf, b_tend)
 
     def step(render):
         d = ds.density.detach().requires_grad_(True)
@@ -435,25 +716,17 @@ def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
 
     profile_step(lambda: step(fw.render_window_fused), card)
 
-    # bounds from this run's windows: per-ray planes, the field rows these
-    # seeds touch, and for the backward the zero-filled gradient field plus a
-    # read-modify-write of every touched row
-    rows = window_rows(cell, tmax, istep, absd, shape3)
-    V = field.shape[0]
-    samples = n * NUM_STEPS
-    fwd_bytes = n * (48 + 24) + rows * 16
-    bwd_bytes = n * (48 + 32 + 24) + rows * 16 + V * 16 + rows * 32
+    # bounds from this run's windows (window_bounds)
+    fb, bb, rows = window_bounds(wargs)
     out["window_fwd"] = dict(ms=fwd_ms, plain_ms=plain_fwd_ms, launches=counts["window_fwd"],
-                             max_abs_err=fwd_err,
-                             bound=bound(fwd_bytes, samples * WINDOW_FWD_OPS_PER_SAMPLE))
+                             max_abs_err=fwd_err, bound=fb)
     out["window_bwd"] = dict(ms=bwd_ms, plain_ms=plain_bwd_ms, launches=counts["window_bwd"],
-                             max_abs_err=grad_err,
-                             bound=bound(bwd_bytes, samples * WINDOW_BWD_OPS_PER_SAMPLE))
+                             max_abs_err=grad_err, bound=bb)
     for name in ("window_fwd", "window_bwd"):
         b = out[name]["bound"]
-        print(f"bound {name}: {fwd_bytes if name == 'window_fwd' else bwd_bytes} bytes "
-              f"({rows} field rows touched of {V}), {samples} samples -> {b[0]:.4f} ms ({b[1]}), "
-              f"kernel at {b[0] / out[name]['ms']:.3f} of it")
+        print(f"bound {name}: {rows} field rows touched of {field.shape[0]}, "
+              f"{n * NUM_STEPS} samples -> {b[0]:.4f} ms ({b[1]}), kernel at "
+              f"{b[0] / out[name]['ms']:.3f} of it | {card}")
     return out
 
 
@@ -620,11 +893,51 @@ def advance_iterations(scene, table, s, budget):
     return count
 
 
+def brick_launches(scene, inputs, rcfg, card, label):
+    """brick_advance on the first round's and brick_fine on the second
+    round's primary states (``inputs`` of brick_kernel_parity), each as raw
+    launches on fixed inputs (no wrapper on the host between them), with
+    their bounds from the data: {kernel: (ms per launch, bound)}."""
+    from raytracing_test_tpu_torch.kernels import brick_kernels as bk
+    from raytracing_test_tpu_torch.kernels import build
+
+    lib = build.library("brick_march")
+    s_adv = inputs[("primary", 1)][2]
+    s_fine, blin_fine, _ = inputs[("primary", 2)]
+    n = s_adv.cell.shape[0]
+    luts = bk._prop_luts(scene, False, rcfg.enable_materials)
+    adv_args, *keep_a = bk._advance_args(scene, scene.brick_dist, s_adv, rcfg.max_steps)
+    fine_args, *keep_f = bk._fine_args(scene, s_fine, blin_fine, luts, rcfg.max_steps)
+    for fn, args in ((lib.brick_advance_launch, adv_args), (lib.brick_fine_launch, fine_args)):
+        if fn(*args) != 0:
+            raise AssertionError("a timing launch of a brick kernel failed")
+    adv_ms = cuda_ms(lambda: lib.brick_advance_launch(*adv_args), reps=20, warmup=3)
+    fine_ms = cuda_ms(lambda: lib.brick_fine_launch(*fine_args), reps=20, warmup=3)
+    iters = int(advance_iterations(scene, scene.brick_dist, s_adv, rcfg.max_steps).sum())
+    adv_bytes = n * (BRICK_STATE_IN + BRICK_STATE_OUT) + scene.brick_dist.numel()
+    adv_bound = bound(adv_bytes, iters * BRICK_ADVANCE_OPS_PER_ITER)
+    fine_out, _ = bk.brick_fine_plain(scene, s_fine, blin_fine, luts, rcfg.max_steps)
+    fine_steps = int((fine_out.steps - s_fine.steps).sum())
+    rows = int(torch.unique(blin_fine[blin_fine >= 0]).numel())
+    fine_bytes = n * (BRICK_STATE_IN + BRICK_STATE_OUT + 4 + 1) + rows * 64 + luts.numel() * 4
+    fine_bound = bound(fine_bytes, fine_steps * BRICK_FINE_OPS_PER_STEP)
+    for name, k_ms, nbytes, work, b in (
+            ("brick_advance", adv_ms, adv_bytes,
+             f"round 1, {n} lanes, {iters} advancing iterations", adv_bound),
+            ("brick_fine", fine_ms, fine_bytes,
+             f"round 2, {int((blin_fine >= 0).sum())} lanes in {rows} occupied bricks, "
+             f"{fine_steps} DDA steps", fine_bound)):
+        print(f"timing {name} per launch, {label} ({work}): kernel {k_ms:.4f} ms; bound "
+              f"{nbytes} bytes -> {b[0]:.4f} ms ({b[1]}), kernel at {b[0] / k_ms:.3f} of it "
+              f"| {card}")
+    del keep_a, keep_f
+    return {"brick_advance": (adv_ms, adv_bound), "brick_fine": (fine_ms, fine_bound)}
+
+
 def bricks_phase(dev, card, side, scene, o_full, wscene, wpos, wdir, cli):
     """Phase 8, the brick engine. Returns its two entries of the kernels line."""
     from raytracing_test_tpu_torch.config import CameraConfig, RenderConfig
     from raytracing_test_tpu_torch.kernels import brick_kernels as bk
-    from raytracing_test_tpu_torch.kernels import build
     from raytracing_test_tpu_torch.kernels import fused_march as fm
     from raytracing_test_tpu_torch.render import bricks
     from raytracing_test_tpu_torch.render.camera import Camera, yaw_pitch_dir
@@ -678,26 +991,18 @@ def bricks_phase(dev, card, side, scene, o_full, wscene, wpos, wdir, cli):
           f"brick_advance launches primary {st['adv'][0]} shadow {st['adv'][1]}; brick_fine "
           f"launches primary {st['fine'][0]} shadow {st['fine'][1]}; caps (max seen, cap): "
           + ", ".join(f"{k} {v[0]} of {v[1]}" for k, v in st["caps"].items()) + f" | {card}")
-    lib = build.library("brick_march")
+    at_side = brick_launches(scene, inputs, full, card, f"{side}^2 bench view")
+    adv_ms, adv_bound = at_side["brick_advance"]
+    fine_ms, fine_bound = at_side["brick_fine"]
     s_adv = inputs[("primary", 1)][2]
     s_fine, blin_fine, _ = inputs[("primary", 2)]
     luts = bk._prop_luts(scene, False, True)
-    # raw launches on fixed inputs: no wrapper on the host between them
-    adv_args, *keep_a = bk._advance_args(scene, scene.brick_dist, s_adv, full.max_steps)
-    fine_args, *keep_f = bk._fine_args(scene, s_fine, blin_fine, luts, full.max_steps)
-    for fn, args in ((lib.brick_advance_launch, adv_args), (lib.brick_fine_launch, fine_args)):
-        if fn(*args) != 0:
-            raise AssertionError("a timing launch of a brick kernel failed")
-    adv_ms = cuda_ms(lambda: lib.brick_advance_launch(*adv_args), reps=20, warmup=3)
-    fine_ms = cuda_ms(lambda: lib.brick_fine_launch(*fine_args), reps=20, warmup=3)
     adv_plain_ms = cuda_ms(lambda: bk.brick_advance_plain(scene, scene.brick_dist, s_adv,
                                                           full.max_steps), reps=2, warmup=1)
     fine_plain_ms = cuda_ms(lambda: bk.brick_fine_plain(scene, s_fine, blin_fine, luts,
                                                         full.max_steps), reps=2, warmup=1)
-    print(f"timing brick_advance per launch (round 1, {n} lanes): kernel {adv_ms:.4f} ms, "
-          f"plain {adv_plain_ms:.3f} ms | {card}")
-    print(f"timing brick_fine per launch (round 2, {int((blin_fine >= 0).sum())} lanes in "
-          f"occupied bricks): kernel {fine_ms:.4f} ms, plain {fine_plain_ms:.3f} ms | {card}")
+    print(f"timing brick plain versions per launch: brick_advance {adv_plain_ms:.3f} ms, "
+          f"brick_fine {fine_plain_ms:.3f} ms | {card}")
     cam = Camera(pos=torch.tensor(BENCH_POS, device=dev), dir=torch.tensor(BENCH_DIR, device=dev))
     frame = {}
     for name, rcfg in (("full", full), ("lean", lean)):
@@ -718,22 +1023,13 @@ def bricks_phase(dev, card, side, scene, o_full, wscene, wpos, wdir, cli):
         print(f"  {k}: {len(v) / 3:.1f} launches and {sum(v) / 3e3:.4f} ms of device time per "
               f"frame, {sum(v) / max(len(v), 1) / 1e3:.4f} ms per launch | {card}")
 
-    # e. bounds of the two timed launches, from their data
-    iters = int(advance_iterations(scene, scene.brick_dist, s_adv, full.max_steps).sum())
-    adv_bytes = n * (BRICK_STATE_IN + BRICK_STATE_OUT) + scene.brick_dist.numel()
-    adv_bound = bound(adv_bytes, iters * BRICK_ADVANCE_OPS_PER_ITER)
-    fine_out, _ = bk.brick_fine_plain(scene, s_fine, blin_fine, luts, full.max_steps)
-    fine_steps = int((fine_out.steps - s_fine.steps).sum())
-    rows = int(torch.unique(blin_fine[blin_fine >= 0]).numel())
-    fine_bytes = n * (BRICK_STATE_IN + BRICK_STATE_OUT + 4 + 1) + rows * 64 + luts.numel() * 4
-    fine_bound = bound(fine_bytes, fine_steps * BRICK_FINE_OPS_PER_STEP)
-    for name, nbytes, work, b, k_ms in (
-            ("brick_advance", adv_bytes, f"{iters} advancing iterations", adv_bound, adv_ms),
-            ("brick_fine", fine_bytes, f"{rows} brick rows, {fine_steps} DDA steps", fine_bound,
-             fine_ms)):
-        print(f"bound {name} per launch: {nbytes} bytes, {work} -> {b[0]:.4f} ms ({b[1]}), "
-              f"kernel at {b[0] / k_ms:.3f} of it | {card}")
-    del keep_a, keep_f
+    # e. the same two launches at the CLI brick frame's shape (its 512^2 view)
+    d = cli.build_parser().parse_args(["render"])
+    cfg_cli = RenderConfig(width=d.width, height=d.height)
+    s_cli = march_state(scene, CameraConfig().pos, yaw_pitch_dir(d.yaw, d.pitch), d.width)
+    _, inputs_cli = brick_kernel_parity(scene, s_cli, cfg_cli,
+                                        fm.fused_march_call(scene, s_cli, cfg_cli, 0.0))
+    at_cli = brick_launches(scene, inputs_cli, cfg_cli, card, f"{d.width}^2 render view")
     common = {"route": "cuda", "source": "raytracing_test_tpu_torch/csrc/brick_march.cu",
               "max_abs_err": max_err, "library_ms": None}
     return [
@@ -743,7 +1039,7 @@ def bricks_phase(dev, card, side, scene, o_full, wscene, wpos, wdir, cli):
         dict(name="brick_fine", replaces="raytracing_test_tpu/kernels/brick_kernels.py:235",
              launches=launches["brick_fine"], ms=fine_ms, plain_ms=fine_plain_ms,
              bound_ms=fine_bound[0], bound_by=fine_bound[1], **common),
-    ]
+    ], {k: (v[0], v[1][0]) for k, v in at_cli.items()}, launches
 
 
 def march_parity(name, k, p, card) -> float:
@@ -764,7 +1060,7 @@ def march_parity(name, k, p, card) -> float:
           f"max_abs_err {err:.3e}, " + ("all fields equal" if not bad else "DIFFER: " + "; ".join(bad))
           + f" | {card}")
     if bad:
-        raise AssertionError(f"{name}: the prox kernel disagrees with its plain version")
+        raise AssertionError(f"{name}: the march kernel disagrees with its plain version")
     return err
 
 
@@ -777,8 +1073,8 @@ class plain_versions:
         from raytracing_test_tpu_torch.kernels import fused_window as fw
 
         self.saved = (fm.fused_march_call, fw.window_call)
-        fm.fused_march_call = lambda scene, s, cfg, time_s=None, prox=False: fm.fused_march_plain(
-            scene, s, cfg, cfg.time if time_s is None else time_s, prox)
+        fm.fused_march_call = lambda scene, s, cfg, time_s=None, prox=False, image_w=0: (
+            fm.fused_march_plain(scene, s, cfg, cfg.time if time_s is None else time_s, prox))
         fw.window_call = fw.window_plain
 
     def __exit__(self, *exc):
@@ -949,9 +1245,11 @@ def prox_phase(dev, card, side, grid, pal, scene, cli):
                                                     prox=True), reps=10, warmup=2)
     seed_e_ms = cuda_ms(lambda: fm.seed_depth_fused(scene, cam.pos, dirs, (side, side)), reps=10,
                         warmup=2)
-    coarse_ms = cuda_ms(lambda: fm.fused_march_call(scene, s_c, rc, 0.0, prox=True), reps=20, warmup=3)
-    full_ms = cuda_ms(lambda: fm.fused_march_call(scene, s_f, rn, 0.0, prox=True), reps=20, warmup=3)
-    lean_ms = cuda_ms(lambda: fm.fused_march_call(scene, s_f, rn, 0.0), reps=20, warmup=3)
+    coarse_ms, coarse_b = raw_march_ms(scene, s_c, rc, 0, prox=True, reps=100)
+    full_ms, _ = raw_march_ms(scene, s_f, rn, 0, prox=True)
+    lean_ms, _ = raw_march_ms(scene, s_f, rn, side)
+    wrapped_ms = cuda_ms(lambda: fm.fused_march_call(scene, s_f, rn, 0.0, prox=True),
+                         reps=20, warmup=3)
     plain_ms = cuda_ms(lambda: fm.fused_march_plain(scene, s_f, rn, 0.0, prox=True), reps=3, warmup=1)
 
     def step(render):
@@ -962,8 +1260,9 @@ def prox_phase(dev, card, side, grid, pal, scene, cli):
     pipe_ms = {"prox": cuda_ms(step(prox_render()), reps=5, warmup=2),
                "exact": cuda_ms(step(exact_render), reps=5, warmup=2)}
     print(f"timing prox {side}x{side}: seed prox {seed_p_ms:.4f} ms vs exact {seed_e_ms:.4f} ms; prox "
-          f"kernel coarse pass {coarse_ms:.4f} ms, full pass {full_ms:.4f} ms (lean kernel on the same "
-          f"start points {lean_ms:.4f} ms), plain prox march {plain_ms:.3f} ms; loss+backward with the "
+          f"kernel coarse pass {coarse_ms:.4f} ms, full pass {full_ms:.4f} ms ({wrapped_ms:.4f} ms "
+          f"through its wrapper; the lean kernel on the same start points, tiled, "
+          f"{lean_ms:.4f} ms), plain prox march {plain_ms:.3f} ms; loss+backward with the "
           f"seed: prox pipeline {pipe_ms['prox']:.4f} ms, exact-seed pipeline {pipe_ms['exact']:.4f} ms "
           f"| {card}")
     profile_step(step(prox_render()), card, steps=3, label="prox pipeline (seed + windows + patch)")
@@ -975,11 +1274,12 @@ def prox_phase(dev, card, side, grid, pal, scene, cli):
     b = bound(nbytes, crossings * MARCH_OPS_PER_CROSSING)
     print(f"bound fused_march_prox full pass: {nbytes} bytes, {crossings} crossings -> {b[0]:.4f} ms "
           f"({b[1]}), kernel at {b[0] / full_ms:.3f} of it | {card}")
-    return dict(name="fused_march_prox", route="cuda",
-                source="raytracing_test_tpu_torch/csrc/fused_march.cu",
-                replaces="raytracing_test_tpu/kernels/fused_march.py:148",
-                launches=main["fused_march_prox"], max_abs_err=err, ms=full_ms, plain_ms=plain_ms,
-                bound_ms=b[0], bound_by=b[1], library_ms=None)
+    entry = dict(name="fused_march_prox", route="cuda",
+                 source="raytracing_test_tpu_torch/csrc/fused_march.cu",
+                 replaces="raytracing_test_tpu/kernels/fused_march.py:148",
+                 launches=main["fused_march_prox"], max_abs_err=err, ms=full_ms, plain_ms=plain_ms,
+                 bound_ms=b[0], bound_by=b[1], library_ms=None)
+    return entry, {"coarse": (coarse_ms, coarse_b[0]), "full": (full_ms, b[0])}
 
 
 def check_png(path, side):
@@ -1022,7 +1322,7 @@ def run(dev: torch.device, side: int) -> int:
     for name, info in sorted(build.BUILD_INFO.items()):
         print(f"  {name}: {info['path']}")
         for line in info.get("nvcc_report", "").splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"    nvcc: {line.strip()}")
 
     # 3. world
@@ -1051,9 +1351,8 @@ def run(dev: torch.device, side: int) -> int:
     # the CLI's own view and frame size (the main path's shapes)
     d = cli.build_parser().parse_args(["render"])
     cli_cfg = RenderConfig(width=d.width, height=d.height)
-    err_cli, _ = parity("cli-view", scene,
-                        march_state(scene, CameraConfig().pos, yaw_pitch_dir(d.yaw, d.pitch), d.width),
-                        cli_cfg, 0.0, d.width)
+    cli_state = march_state(scene, CameraConfig().pos, yaw_pitch_dir(d.yaw, d.pitch), d.width)
+    err_cli, _ = parity("cli-view", scene, cli_state, cli_cfg, 0.0, d.width)
     max_err = max(err_full, err_lean, err_water, err_cli)
 
     # 5. frames through the CLI; only these launches are counted
@@ -1073,35 +1372,19 @@ def run(dev: torch.device, side: int) -> int:
         for i in range(4):
             check_png(os.path.join(tmp, "anim", f"frame_{i:04d}.png"), 512)
 
-    # 6. timing at 1024^2 (grid resident in L2 across frames, as when rendering)
+    # 6. timing and diagnosis of the march (grid resident in L2 across
+    # frames, as when rendering)
     n = side * side
-    times = {}
-    crossings = int(o_full["steps"].to(torch.int64).sum())  # primary crossings of the frame
-    for name, rcfg in (("full", full), ("lean", lean)):
-        k_ms = cuda_ms(lambda: fm.fused_march_call(scene, s_bench, rcfg, 0.0), reps=20, warmup=3)
-        p_ms = cuda_ms(lambda: fm.fused_march_plain(scene, s_bench, rcfg, 0.0), reps=3, warmup=1)
-        cam = Camera(pos=torch.tensor(BENCH_POS, device=dev), dir=torch.tensor(BENCH_DIR, device=dev))
-        f_ms = cuda_ms(lambda: fm.render_image_fused(scene, cam, rcfg, 0.0), reps=10, warmup=2)
-        times[name] = (k_ms, p_ms)
-        print(f"timing {name} {side}x{side}: kernel {k_ms:.4f} ms/frame ({n / k_ms * 1e3:.4e} rays/s), "
-              f"plain {p_ms:.3f} ms/frame ({n / p_ms * 1e3:.4e} rays/s), "
-              f"speedup {p_ms / k_ms:.1f}x, whole frame (rays+kernel+shade) {f_ms:.4f} ms "
-              f"| {card}")
-
-    # full-feature frame: grid_enc and palette flags read once, 72 bytes of
-    # rays in and 88 bytes out per ray; one march step per primary crossing
-    march_bytes = scene.grid_enc.numel() + scene.flags.numel() * 4 + n * (72 + 88)
-    march_bound = bound(march_bytes, crossings * MARCH_OPS_PER_CROSSING)
-    print(f"bound fused_march full {side}x{side}: {march_bytes} bytes, {crossings} primary "
-          f"crossings -> {march_bound[0]:.4f} ms ({march_bound[1]}), "
-          f"kernel at {march_bound[0] / times['full'][0]:.3f} of it")
+    times, march_bound, march_shapes = march_phase(dev, card, side, scene, s_bench, o_full, full,
+                                                   lean, cli_state, cli_cfg)
 
     # 7. the training slice
     train = train_phase(dev, card, side, grid, pal, scene, cli, fm, fw)
     launches = serve_launches + train["march_launches"]
 
     # 8. the brick engine
-    brick_kernels = bricks_phase(dev, card, side, scene, o_full, wscene, wpos, wdir, cli)
+    brick_kernels, bricks_cli, brick_counts = bricks_phase(dev, card, side, scene, o_full, wscene,
+                                                           wpos, wdir, cli)
 
     kernels = [{
         "name": "fused_march",
@@ -1134,7 +1417,39 @@ def run(dev: torch.device, side: int) -> int:
     kernels += brick_kernels
 
     # 9. the prox seed and the prox-seeded window render
-    kernels.append(prox_phase(dev, card, side, grid, pal, scene, cli))
+    prox_entry, prox_passes = prox_phase(dev, card, side, grid, pal, scene, cli)
+    kernels.append(prox_entry)
+
+    # where the kernels lose time on the main paths: launches x (ms - bound)
+    # at the shape each launch has (the launch counts are this run's)
+    views = train["march_launches"] - train["seeds"]
+    w16, w8 = train["batches"][TRAIN_BATCH], train["batches"][CLI_BATCH]
+    order = [
+        ("fused_march full, 512^2 render/animate frames", serve_launches,
+         march_shapes[f"full {cli_cfg.width}^2 (render/animate frame)"]),
+        ("fused_march materials, 64^2 target views of the fit", views,
+         march_shapes["materials 64^2 (a target view of the fit)"]),
+        (f"fused_march lean, {TRAIN_BATCH}-ray train seeds", train["steps"][TRAIN_BATCH],
+         march_shapes[f"lean {TRAIN_BATCH} rays (a train step's seed)"]),
+        (f"fused_march lean, {CLI_BATCH}-ray CLI fit seeds", train["steps"][CLI_BATCH],
+         march_shapes[f"lean {CLI_BATCH} rays (a CLI fit step's seed)"]),
+        (f"window_fwd, {TRAIN_BATCH} x {NUM_STEPS}", train["steps"][TRAIN_BATCH], w16["window_fwd"]),
+        (f"window_fwd, {CLI_BATCH} x {NUM_STEPS}", train["steps"][CLI_BATCH], w8["window_fwd"]),
+        (f"window_bwd, {TRAIN_BATCH} x {NUM_STEPS} (zero-fill included)", train["steps"][TRAIN_BATCH],
+         w16["window_bwd"]),
+        (f"window_bwd, {CLI_BATCH} x {NUM_STEPS} (zero-fill included)", train["steps"][CLI_BATCH],
+         w8["window_bwd"]),
+        ("brick_advance, 512^2 brick frame (round-1 launch)", brick_counts["brick_advance"],
+         bricks_cli["brick_advance"]),
+        ("brick_fine, 512^2 brick frame (round-2 launch)", brick_counts["brick_fine"],
+         bricks_cli["brick_fine"]),
+        (f"fused_march prox, {side // 4}^2 coarse pass", 1, prox_passes["coarse"]),
+        (f"fused_march prox, {side}^2 full pass", 1, prox_passes["full"]),
+    ]
+    order.sort(key=lambda r: -r[1] * (r[2][0] - r[2][1]))
+    print(f"order of the kernels' lost time on the main paths | {card}")
+    for name, count, (ms, b_ms) in order:
+        print(f"  {count} x ({ms:.4f} - {b_ms:.4f}) = {count * (ms - b_ms):.4f} ms: {name}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

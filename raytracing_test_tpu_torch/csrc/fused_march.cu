@@ -1,5 +1,5 @@
-// fused_march.cu: the whole primary march of one ray per thread, plus its
-// sun-shadow march, for NVIDIA Hopper (sm_90a).
+// fused_march.cu: the whole primary march of each ray, plus its sun-shadow
+// march, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel raytracing_test_tpu/kernels/fused_march.py:_fused_kernel
 // (Pallas). Its semantics are render/fast.py's, and the plain PyTorch version
@@ -9,24 +9,39 @@
 //
 // What the TPU kernel did only because of the TPU is dropped: MXU one-hot
 // table lookups (core/fused_tables.py), bf16 tables, SMEM LUT words, 4096-ray
-// tiles and the 64x64 block permutation, two steps per while trip, and the
-// masked-brick z-run licence. Here each iteration does one dependent u8 load
-// from grid_enc (core/flatten.py): a value < 128 is the cell's material, a
-// value >= 128 licenses an all-air Chebyshev box of radius v - 129, which the
-// ray crosses in closed form (_aabb_advance_bounds). The palette flags
-// (<= 128 ids) sit in shared memory.
+// tiles, two steps per while trip, and the masked-brick z-run licence. Here
+// each trip does one dependent u8 load from grid_enc (core/flatten.py): a
+// value < 128 is the cell's material, a value >= 128 licenses an all-air
+// Chebyshev box of radius v - 129, which the ray crosses in closed form
+// (_aabb_advance_bounds). The palette flags (<= 128 ids) sit in shared
+// memory.
 //
 // What bounds it on this card: a chain of dependent u8 loads per ray from a
 // grid that stays resident in the 50 MB L2 (8.4 MB for the default world),
-// and warp divergence between rays that finish in a few iterations and
-// grazing rays that take hundreds. One thread per ray, 128 threads per block,
-// rays in natural order: neighbouring pixels share a warp and mostly take
-// similar paths. Making it fast (ray reordering, persistent warps) is later
-// work.
+// each trip a few hundred instructions (two IEEE divisions among them), and
+// lanes of a warp that wait for its longest ray: a grazing ray or one
+// refracted through water takes many trips while its neighbours hit in a
+// few, and the sun-shadow march runs on some lanes only. The instructions
+// issued, not the bytes, set its time. The design (measured by kernel_ab.py
+// against the one-thread-per-ray original):
 //
-// Prox mode (prox = 1; the reference's prox_stop, fused_march.py:148,
-// :275-278, :461-472): the seed march that stops at the first entry into an
-// occupied 8^3 brick. The primary loop then reads prox_enc (core/flatten.py:
+//  - Compile-time modes. The kernel is a template on (materials, shadows,
+//    prox); the lean and prox launches carry no material or shadow code
+//    (9 blocks per SM against the runtime-flag kernel's 7).
+//  - Warp tiles. When the rays are a row-major W x H image and the march is
+//    long enough for its lanes to matter (the wrapper passes W: frames and
+//    the exact seed passes), warp w marches the 8x4 pixel tile w (ray_of):
+//    the warp's lanes take more alike paths. Every output is still written
+//    at the ray's own index. Otherwise thread j runs ray j, whose stores and
+//    loads a warp then makes whole.
+//  - One ray per thread, 128 threads per block. Persistent warps that take
+//    new rays as their lanes finish (Aila and Laine, HPG 2009) kept 97% of
+//    lanes busy but ran 1.6-1.8x slower: the refill's ballots, shuffles and
+//    resumable state cost more than the idle lanes they filled.
+//
+// Prox mode (the reference's prox_stop, fused_march.py:148, :275-278,
+// :461-472): the seed march that stops at the first entry into an occupied
+// 8^3 brick. The primary loop then reads prox_enc (core/flatten.py:
 // build_prox_enc) instead of grid_enc: every value < 128 is a stop cell, the
 // reserved code kProxAir marks its air cells and reports material 1, and the
 // licences of the other cells are computed with the stop cells as occupied,
@@ -39,9 +54,16 @@
 // dda.cuh.
 //
 // The per-ray code is plain C++ behind RT_DEV so that a host build of this
-// file (without __CUDACC__) can exercise the same logic.
+// file (without __CUDACC__) can exercise the same logic
+// (tests/test_torch_host_kernels.py).
 
 #include "dda.cuh"
+
+#ifdef __CUDACC__
+#define RT_HD __host__ __device__ __forceinline__
+#else
+#define RT_HD inline
+#endif
 
 namespace rt {
 
@@ -52,23 +74,47 @@ constexpr int kLiquid = 0x10;
 constexpr int kRefractive = 0x4;
 constexpr float kIorWater = 1.1f;
 constexpr float kEpsDir = 1e-12f;
+#ifndef RT_MARCH_TILE_W
+#define RT_MARCH_TILE_W 8  // kernel_ab.py also times 16 (16x2 tiles)
+#endif
+// one warp's pixels when the rays are an image: kTileW x kTileH
+constexpr int kTileW = RT_MARCH_TILE_W, kTileH = 32 / RT_MARCH_TILE_W;
 
 struct Params {
   const uint8_t* grid_enc;  // [sx, sy, sz]
-  const uint8_t* prox_enc;  // [sx, sy, sz], read by the primary loop when prox
-  int prox;
+  const uint8_t* prox_enc;  // [sx, sy, sz], read by the primary loop in prox mode
   int sx, sy, sz, y_max;
-  int budget, shadow_budget, enable_materials, enable_shadows;
+  int budget, shadow_budget;
   float time_s;
   float sun[3];  // normalised sun direction (not sanitised)
   // initial state (render/fast.py:_init_state), [n, 3] or [n]
   const int32_t* cell0;
   const float *tmax0, *dir0, *step0, *abs0, *org0;
   int n;
+  int width;  // > 0: the rays are a row-major image this wide (n % width == 0)
   // outputs
   int32_t *mat0, *mat, *cell, *la, *refl, *shad, *steps;
   float *dir, *step, *seg, *lt, *cmod;
 };
+
+// Work items of a launch: one per ray, or 32 per 8x4 tile of the image.
+RT_HD int work_items(const Params& P) {
+  if (P.width <= 0) return P.n;
+  const int h = P.n / P.width;
+  return ((P.width + kTileW - 1) / kTileW) * ((h + kTileH - 1) / kTileH) * 32;
+}
+
+// The ray of work item j, or -1 (a tile's pixel past the image's edge):
+// item j is lane j % 32 of tile j / 32, tiles row-major over the image
+// (kernels/fused_march.py:tile_order).
+RT_HD int ray_of(const Params& P, int j) {
+  if (P.width <= 0) return j < P.n ? j : -1;
+  const int tiles_x = (P.width + kTileW - 1) / kTileW;
+  const int w = j >> 5, l = j & 31;
+  const int x = (w % tiles_x) * kTileW + (l % kTileW);
+  const int y = (w / tiles_x) * kTileH + (l / kTileW);
+  return (x < P.width && y < P.n / P.width) ? y * P.width + x : -1;
+}
 
 RT_DEV int gather_enc(const Params& P, const uint8_t* grid, const int c[3]) {
   const int wx = c[0] & 1023, wy = c[1] & 1023, wz = c[2] & 1023;
@@ -223,7 +269,10 @@ RT_DEV bool shadow_march(const Params& P, const int* flags_s, const float p[3],
 }
 
 // The whole per-ray program: start-cell specials, primary march with the
-// reflect/refract state machine, then the sun-shadow march.
+// reflect/refract state machine, then the sun-shadow march. The modes are
+// compile-time: kMaterials (reflect/refract), kShadows, kProx (the loop reads
+// prox_enc; lean only).
+template <bool kMaterials, bool kShadows, bool kProx>
 RT_DEV void march_ray(const Params& P, const int* flags_s, int i) {
   Dda r;
   float d[3], o[3], cm[3] = {1.0f, 1.0f, 1.0f};
@@ -250,15 +299,15 @@ RT_DEV void march_ray(const Params& P, const int* flags_s, int i) {
   int mat = raw0 ? mat0 : 0;
 
   if (!raw0) {
-    const uint8_t* grid = P.prox ? P.prox_enc : P.grid_enc;
+    const uint8_t* grid = kProx ? P.prox_enc : P.grid_enc;
     for (int it = 0; it < kIterCap; ++it) {
       const int enc = gather_enc(P, grid, r.c);
-      const int m = enc < kMaxMat ? (P.prox && enc == kProxAir ? 1 : enc) : 0;
+      const int m = enc < kMaxMat ? (kProx && enc == kProxAir ? 1 : enc) : 0;
       const int fl = flags_s[m];
       const int f7 = fl & 0x7;
       const bool solid = m != 0;
-      const bool is_refl = P.enable_materials && solid && f7 == 0x3;
-      const bool is_refr = P.enable_materials && solid && f7 == 0x5;
+      const bool is_refl = kMaterials && solid && f7 == 0x3;
+      const bool is_refr = kMaterials && solid && f7 == 0x5;
       mat = m;
       if (solid && !is_refl && !is_refr) break;  // hit
       if (is_refl || is_refr) {
@@ -276,7 +325,7 @@ RT_DEV void march_ray(const Params& P, const int* flags_s, int i) {
   // budget-frozen lanes inside a refractive block), facing the sun, not
   // reflected, not started inside a solid
   bool shad = false;
-  if (P.enable_shadows && mat != 0 && !raw0 && !refl) {
+  if (kShadows && mat != 0 && !raw0 && !refl) {
     const float lam = sel3(P.sun, r.la) * -sel3(r.s, r.la);
     if (lam > 0.0f) {
       float p[3];
@@ -308,17 +357,57 @@ RT_DEV void march_ray(const Params& P, const int* flags_s, int i) {
 #ifdef __CUDACC__
 
 constexpr int kThreads = 128;
+// Launch bounds of the modes with materials: 6 blocks per SM let ptxas hold
+// the full kernel's state in 72 registers without a spill; with no bound it
+// chose 64 registers and a spill, measured slower (kernel_ab.py also times
+// a bound of 1).
+#ifndef RT_MARCH_MIN_BLOCKS_MAT
+#define RT_MARCH_MIN_BLOCKS_MAT 6
+#endif
 
-__global__ void __launch_bounds__(kThreads)
+template <bool kMaterials, bool kShadows, bool kProx>
+__global__ void __launch_bounds__(kThreads, kMaterials ? RT_MARCH_MIN_BLOCKS_MAT : 1)
 fused_march_kernel(rt::Params P, const int32_t* __restrict__ flags, int n_flags) {
   __shared__ int flags_s[rt::kMaxMat];
   for (int j = threadIdx.x; j < rt::kMaxMat; j += blockDim.x) {
     flags_s[j] = j < n_flags ? flags[j] : 0;
   }
   __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < P.n) rt::march_ray(P, flags_s, i);
+  const int i = rt::ray_of(P, blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= 0) rt::march_ray<kMaterials, kShadows, kProx>(P, flags_s, i);
 }
+
+namespace {
+
+template <bool M, bool S, bool X>
+int blocks_per_sm() {
+  int blocks = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fused_march_kernel<M, S, X>, kThreads, 0);
+  return blocks;
+}
+
+template <bool M, bool S, bool X>
+int launch(const rt::Params& P, const int32_t* flags, int n_flags, cudaStream_t stream) {
+  const int blocks = (rt::work_items(P) + kThreads - 1) / kThreads;
+  fused_march_kernel<M, S, X><<<blocks, kThreads, 0, stream>>>(P, flags, n_flags);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// mode: bit 0 materials, bit 1 shadows, or 4 for prox (lean only).
+extern "C" int fused_march_blocks_per_sm(int mode) {
+  switch (mode) {
+    case 0: return blocks_per_sm<false, false, false>();
+    case 1: return blocks_per_sm<true, false, false>();
+    case 2: return blocks_per_sm<false, true, false>();
+    case 3: return blocks_per_sm<true, true, false>();
+    case 4: return blocks_per_sm<false, false, true>();
+    default: return -1;
+  }
+}
+
+extern "C" int fused_march_threads() { return kThreads; }
 
 extern "C" int fused_march_launch(
     const void* grid_enc, const void* prox_enc, int prox, const void* flags, int n_flags,
@@ -327,18 +416,20 @@ extern "C" int fused_march_launch(
     float time_s, float sun_x, float sun_y, float sun_z,
     const void* cell0, const void* tmax0, const void* dir0, const void* step0,
     const void* abs0, const void* org0,
-    int n,
+    int n, int width,
     void* o_mat0, void* o_mat, void* o_cell, void* o_la, void* o_refl, void* o_shad,
     void* o_steps, void* o_dir, void* o_step, void* o_seg, void* o_lt, void* o_cmod,
     void* stream) {
   if (n <= 0) return 0;
+  if (width < 0 || (width > 0 && n % width != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if (prox && (enable_materials || enable_shadows)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   rt::Params P;
   P.grid_enc = static_cast<const uint8_t*>(grid_enc);
   P.prox_enc = static_cast<const uint8_t*>(prox_enc);
-  P.prox = prox;
   P.sx = sx; P.sy = sy; P.sz = sz; P.y_max = y_max;
   P.budget = budget; P.shadow_budget = shadow_budget;
-  P.enable_materials = enable_materials; P.enable_shadows = enable_shadows;
   P.time_s = time_s;
   P.sun[0] = sun_x; P.sun[1] = sun_y; P.sun[2] = sun_z;
   P.cell0 = static_cast<const int32_t*>(cell0);
@@ -348,6 +439,7 @@ extern "C" int fused_march_launch(
   P.abs0 = static_cast<const float*>(abs0);
   P.org0 = static_cast<const float*>(org0);
   P.n = n;
+  P.width = width;
   P.mat0 = static_cast<int32_t*>(o_mat0);
   P.mat = static_cast<int32_t*>(o_mat);
   P.cell = static_cast<int32_t*>(o_cell);
@@ -360,10 +452,15 @@ extern "C" int fused_march_launch(
   P.seg = static_cast<float*>(o_seg);
   P.lt = static_cast<float*>(o_lt);
   P.cmod = static_cast<float*>(o_cmod);
-  const int blocks = (n + kThreads - 1) / kThreads;
-  fused_march_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      P, static_cast<const int32_t*>(flags), n_flags);
-  return static_cast<int>(cudaGetLastError());
+  const auto* fl = static_cast<const int32_t*>(flags);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (prox) return launch<false, false, true>(P, fl, n_flags, s);
+  switch (enable_materials * 1 + enable_shadows * 2) {
+    case 0: return launch<false, false, false>(P, fl, n_flags, s);
+    case 1: return launch<true, false, false>(P, fl, n_flags, s);
+    case 2: return launch<false, true, false>(P, fl, n_flags, s);
+    default: return launch<true, true, false>(P, fl, n_flags, s);
+  }
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -21,13 +21,14 @@
 // albedo from the field. With Total = surf . g_surf (a forward output), the
 // suffix sum of the reverse sweep is Total - prefix, so one forward pass
 // gives g_od = T e A - (Total - prefix) - T_end g_T per sample. The field
-// gradient (g_od dt, w g_rgb I) goes into a zeroed [V, 4] field: the lanes
-// of a warp that hit the same row sum with shuffles (__match_any_sync), then
-// one lane adds with atomicAdd (out-of-grid rows and exact zeros skipped). A
-// surface cell near the bench camera takes thousands of contributions; one
-// chain of float atomics per row drifts further from the exact sum than the
-// plain version's accumulation does; the warp trees stay close to it and
-// need fewer atomics. The tmax and
+// gradient (g_od dt, w g_rgb I) goes into a zeroed [V, 4] field: each run
+// of neighbouring lanes of a warp that hit the same row sums with a
+// segmented tree of shuffles, then its first lane adds the row with one
+// float4 atomicAdd (out-of-grid rows skipped). A surface cell near the bench
+// camera takes thousands of contributions; one chain of float atomics per
+// row drifts further from the exact sum than the plain version's
+// accumulation does; the trees stay close to it and need fewer atomics. The
+// tmax and
 // abs_delta cotangents follow the crossing recurrence t = tmax_a + k abs_a
 // with the one-step-delayed exit-axis subtraction of the TPU kernel. The
 // clamp in dt passes its gradient whole, as the TPU kernel does.
@@ -42,11 +43,21 @@
 // What bounds it on this card: the field rows a window touches (16 bytes per
 // sample, neighbouring rays share most cells, so L2 serves most of them), the
 // per-ray planes, and in the backward the zero-filled 134 MB gradient field
-// of the default world plus the atomics on shared surface cells. The
-// arithmetic per sample is a few dozen flops and one exp. One thread per
-// ray, 128 threads per block, rays in natural (row-major) order so a warp
-// marches neighbouring pixels through neighbouring cells. Making it fast
-// (transmittance early-out, fewer gradient bytes) is later work.
+// of the default world. The arithmetic per sample is a few dozen flops and
+// one exp; the backward adds its warp reduction, which issues about as many
+// instructions again: the kernels are bound by instructions issued, not by
+// bytes. One thread per ray, rays in natural (row-major) order so a warp
+// marches neighbouring pixels through neighbouring cells and its lanes on
+// one row sit side by side.
+//
+// The backward's design for this card (measured by kernel_ab.py against the
+// one-thread-per-ray original): the peers of a row are found as runs of
+// neighbouring lanes (one shuffle and one ballot) rather than with
+// __match_any_sync, and each run's row goes to memory as one float4
+// atomicAdd (sm_90) rather than four scalar ones. Loading the rows of the
+// next samples ahead of their use (their cells follow from the DDA alone)
+// was slower: its registers cost occupancy at 1024^2, and a training batch
+// of less than a wave gained nothing from it.
 //
 // Arithmetic: built with -fmad=false; every expression keeps the plain
 // version's operation order, so forward values agree to the last bits of
@@ -63,11 +74,9 @@
 #include <cuda_runtime.h>
 #define RT_DEV __device__ __forceinline__
 #define RT_LDG(p) __ldg(p)
-#define RT_ATOMIC_ADD(p, v) atomicAdd((p), (v))
 #else
 #define RT_DEV inline
 #define RT_LDG(p) (*(p))
-#define RT_ATOMIC_ADD(p, v) (*(p) += (v))
 struct float4 {
   float x, y, z, w;
 };
@@ -174,31 +183,47 @@ RT_DEV void forward_ray(const Params& P, int i, float* surf, float* t_end, float
 }
 
 #ifdef __CUDACC__
-// Sum a, b, c, d over the lanes of ``peers`` (the lanes of this warp that
-// hit the same field row) as a tree of shuffles; the lowest peer ends with
-// the sums. Every lane of the warp must call it.
-__device__ __forceinline__ void reduce_peers(unsigned peers, float& a, float& b, float& c,
-                                             float& d) {
-  const int lane = threadIdx.x & 31;
-  int rel = __popc(peers & ((1u << lane) - 1u));  // peers below this lane
-  peers &= 0xFFFFFFFEu << lane;                   // peers above this lane
-  while (__any_sync(0xFFFFFFFFu, peers)) {
-    const int next = __ffs(peers);
-    const float ta = __shfl_sync(0xFFFFFFFFu, a, next - 1);
-    const float tb = __shfl_sync(0xFFFFFFFFu, b, next - 1);
-    const float tc = __shfl_sync(0xFFFFFFFFu, c, next - 1);
-    const float td = __shfl_sync(0xFFFFFFFFu, d, next - 1);
-    if (next) {
+// Sum a, b, c, d over each run of neighbouring lanes with the same ``key``
+// (field row) as a segmented tree of shuffles; the first lane of a run ends
+// with the run's sums and gets true. Every lane of the warp must call it.
+__device__ __forceinline__ bool reduce_runs(unsigned key, float& a, float& b, float& c,
+                                            float& d) {
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned prev = __shfl_up_sync(0xFFFFFFFFu, key, 1);  // every lane takes part
+  const bool head = lane == 0 || key != prev;
+  const unsigned long long heads = __ballot_sync(0xFFFFFFFFu, head);
+  for (unsigned dd = 1; dd < 32; dd <<= 1) {
+    // lane + dd is in this lane's run when no run starts in (lane, lane + dd]
+    const bool add = lane + dd < 32 &&
+                     (heads & ((1ull << (lane + dd + 1)) - (1ull << (lane + 1)))) == 0;
+    if (!__any_sync(0xFFFFFFFFu, add)) break;
+    const float ta = __shfl_down_sync(0xFFFFFFFFu, a, dd);
+    const float tb = __shfl_down_sync(0xFFFFFFFFu, b, dd);
+    const float tc = __shfl_down_sync(0xFFFFFFFFu, c, dd);
+    const float td = __shfl_down_sync(0xFFFFFFFFu, d, dd);
+    if (add) {
       a += ta;
       b += tb;
       c += tc;
       d += td;
     }
-    peers &= ~__ballot_sync(0xFFFFFFFFu, rel & 1);
-    rel >>= 1;
   }
+  return head;
 }
 #endif
+
+// Add a gradient row: on the card one float4 atomicAdd (sm_90; adding +0.0
+// leaves a component as it is), on the host a plain sum.
+RT_DEV void add_row(float* row, float v0, float v1, float v2, float v3) {
+#ifdef __CUDA_ARCH__
+  atomicAdd(reinterpret_cast<float4*>(row), make_float4(v0, v1, v2, v3));
+#else
+  row[0] += v0;
+  row[1] += v1;
+  row[2] += v2;
+  row[3] += v3;
+#endif
+}
 
 // ``valid`` is false for the padding lanes of the last warp: they march ray
 // i with zero cotangents (so they add nothing) and write nothing, but stay in
@@ -236,19 +261,11 @@ RT_DEV void backward_ray(const Params& P, int i, bool valid, const float* g_surf
     float v1 = w * gr * inten, v2 = w * gg * inten, v3 = w * gb * inten;
     bool lead = inside;
 #ifdef __CUDACC__
-    // lanes of the warp on the same row sum first: one atomic per row and
-    // warp, and a tree instead of a long chain of float additions
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, inside ? (unsigned)lin : 0xFFFFFFFFu);
-    reduce_peers(peers, v0, v1, v2, v3);
-    lead = inside && (int)(threadIdx.x & 31) == __ffs(peers) - 1;
+    // neighbouring lanes on the same row sum first: one atomic per run, and
+    // a tree instead of a long chain of float additions
+    lead = reduce_runs(inside ? (unsigned)lin : 0xFFFFFFFFu, v0, v1, v2, v3) && inside;
 #endif
-    if (lead) {
-      float* row = grad + 4 * lin;
-      if (v0 != 0.0f) RT_ATOMIC_ADD(row + 0, v0);
-      if (v1 != 0.0f) RT_ATOMIC_ADD(row + 1, v1);
-      if (v2 != 0.0f) RT_ATOMIC_ADD(row + 2, v2);
-      if (v3 != 0.0f) RT_ATOMIC_ADD(row + 3, v3);
-    }
+    if (lead) add_row(grad + 4 * lin, v0, v1, v2, v3);
     // dL/d dt_s = g_od sigma_s; step s's crossing value is tmax_a + c_a abs_a
     // on its exit axis a, and dt_{s+1} subtracts it again
     const float h = g_od * f.x;
@@ -276,7 +293,15 @@ RT_DEV void backward_ray(const Params& P, int i, bool valid, const float* g_surf
 
 #ifdef __CUDACC__
 
+// window_bwd's block: 128 threads for a launch of at most one wave of them
+// (the training batches), 64 above (the 1024^2 frame): measured faster each
+// at its size (kernel_ab.py also times 128 above a wave)
+#ifndef RT_WINDOW_BWD_THREADS_LARGE
+#define RT_WINDOW_BWD_THREADS_LARGE 64
+#endif
+
 constexpr int kThreads = 128;
+constexpr int kBwdSmall = 128, kBwdLarge = RT_WINDOW_BWD_THREADS_LARGE;
 
 __global__ void __launch_bounds__(kThreads)
 window_fwd_kernel(rtw::Params P, float* surf, float* t_end, float* w_sum, float* t_exp) {
@@ -284,7 +309,8 @@ window_fwd_kernel(rtw::Params P, float* surf, float* t_end, float* w_sum, float*
   if (i < P.n) rtw::forward_ray(P, i, surf, t_end, w_sum, t_exp);
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int kBwdThreads>
+__global__ void __launch_bounds__(kBwdThreads)
 window_bwd_kernel(rtw::Params P, const float* g_surf, const float* g_tend, const float* surf,
                   const float* t_end, float* grad, float* g_tmax, float* g_abs) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -331,12 +357,37 @@ extern "C" int window_bwd_launch(
   if (n <= 0) return 0;
   const rtw::Params P = make_params(field, sx, sy, sz, cell, tmax, istep, absd, n, S, shading,
                                     sun_x, sun_y, sun_z);
-  const int blocks = (n + kThreads - 1) / kThreads;
-  window_bwd_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_bwd_kernel<kBwdSmall>,
+                                                kBwdSmall, 0);
+  const bool large = n > per_sm * sms * kBwdSmall;  // more than one wave of small blocks
+  const int threads = large ? kBwdLarge : kBwdSmall;
+  auto* kernel = large ? window_bwd_kernel<kBwdLarge> : window_bwd_kernel<kBwdSmall>;
+  kernel<<<(n + threads - 1) / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       P, static_cast<const float*>(g_surf), static_cast<const float*>(g_tend),
       static_cast<const float*>(surf), static_cast<const float*>(t_end),
       static_cast<float*>(grad), static_cast<float*>(g_tmax), static_cast<float*>(g_abs));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks per SM of the forward (which 0) or the backward kernel (which 1:
+// its small-launch block, 2: its large-launch block), and (threads != null)
+// the block size.
+extern "C" int window_blocks_per_sm(int which, int* threads) {
+  int blocks = -1, t = kThreads;
+  if (which == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, window_fwd_kernel, t, 0);
+  } else if (which == 1) {
+    t = kBwdSmall;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, window_bwd_kernel<kBwdSmall>, t, 0);
+  } else {
+    t = kBwdLarge;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, window_bwd_kernel<kBwdLarge>, t, 0);
+  }
+  if (threads) *threads = t;
+  return blocks;
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -128,11 +128,15 @@ def _declare_fused_march(lib: ctypes.CDLL) -> None:
         + [I] * 4  # budget, shadow_budget, enable_materials, enable_shadows
         + [F] * 4  # time_s, sun x/y/z
         + [P] * 6  # cell, tmax, dir, step, abs_delta, seg_origin
-        + [I]  # n
+        + [I, I]  # n, image width (0: natural order)
         + [P] * 12  # mat0, mat, cell, la, refl, shad, steps, dir, step, seg, lt, cmod
         + [P]  # stream
     )
     lib.fused_march_launch.restype = ctypes.c_int
+    lib.fused_march_blocks_per_sm.argtypes = [I]
+    lib.fused_march_blocks_per_sm.restype = ctypes.c_int
+    lib.fused_march_threads.argtypes = []
+    lib.fused_march_threads.restype = ctypes.c_int
 
 
 def _declare_fused_window(lib: ctypes.CDLL) -> None:
@@ -151,6 +155,8 @@ def _declare_fused_window(lib: ctypes.CDLL) -> None:
         + [P]  # stream
     )
     lib.window_bwd_launch.restype = ctypes.c_int
+    lib.window_blocks_per_sm.argtypes = [I, P]
+    lib.window_blocks_per_sm.restype = ctypes.c_int
 
 
 def _declare_brick_march(lib: ctypes.CDLL) -> None:

@@ -17,7 +17,6 @@ instead.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict
 
 import torch
@@ -33,6 +32,26 @@ LAUNCHES = 0  # kernel launches in this process (never incremented by the plain 
 LAUNCHES_PROX = 0  # kernel launches in the prox mode
 
 _KMAX_MAT = 128
+
+
+TILE_W, TILE_H = 8, 4  # pixels of one warp's tile when the rays form an image
+
+
+def tile_order(width: int, height: int, tile_w: int = TILE_W) -> torch.Tensor:
+    """The ray that each thread of a tiled launch marches, -1 for none: warp
+    w covers the tile_w x (32 / tile_w) pixel tile (w % tiles_x, w // tiles_x)
+    of the row-major ``width`` x ``height`` image, lane l its pixel
+    (l % tile_w, l // tile_w). Tiles past the image's right and bottom edges
+    hold no rays. The kernel computes the same map (csrc/fused_march.cu:
+    ray_of)."""
+    tile_h = 32 // tile_w
+    tiles_x = -(-width // tile_w)
+    tiles_y = -(-height // tile_h)
+    j = torch.arange(tiles_x * tiles_y * 32)
+    w, lane = j // 32, j % 32
+    x = (w % tiles_x) * tile_w + lane % tile_w
+    y = (w // tiles_x) * tile_h + lane // tile_w
+    return torch.where((x < width) & (y < height), y * width + x, torch.full_like(j, -1))
 
 
 def fused_march_plain(scene: Scene, s: _March, cfg: RenderConfig, time_s,
@@ -74,11 +93,27 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"fused_march: {name} must be contiguous")
 
 
-def _launch(scene: Scene, s: _March, cfg: RenderConfig, time_s, prox: bool) -> Dict[str, torch.Tensor]:
-    global LAUNCHES, LAUNCHES_PROX
+_MODES = {"lean": 0, "materials": 1, "shadows": 2, "full": 3, "prox": 4}
+
+
+def occupancy() -> Dict[str, int]:
+    """Blocks per SM of the kernel each mode launches (and its block size),
+    from cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
     from . import build
 
     lib = build.library("fused_march")
+    out = {f"march {k}": lib.fused_march_blocks_per_sm(v) for k, v in _MODES.items()}
+    out["march threads"] = lib.fused_march_threads()
+    return out
+
+
+def _launch_args(scene: Scene, s: _March, cfg: RenderConfig, time_s: float, prox: bool,
+                 image_w: int, lib=None):
+    """(launch function, its arguments, outputs, inputs kept alive) for one
+    launch on checked inputs; ``lib``: another build of the same source."""
+    from . import build
+
+    lib = lib or build.library("fused_march")
     dev = s.cell.device
     N = s.cell.shape[0]
     i32, f32 = torch.int32, torch.float32
@@ -95,6 +130,8 @@ def _launch(scene: Scene, s: _March, cfg: RenderConfig, time_s, prox: bool) -> D
     names = ["cell", "tmax", "dir", "step", "abs_delta", "seg_origin"]
     for t, name in zip(ins, names):
         _check(t, name, i32 if name == "cell" else f32, (N, 3), dev)
+    if image_w < 0 or (image_w and N % image_w):
+        raise ValueError(f"fused_march: {N} rays are no image {image_w} wide")
 
     out = {
         "mat0": torch.empty(N, dtype=i32, device=dev),
@@ -111,8 +148,7 @@ def _launch(scene: Scene, s: _March, cfg: RenderConfig, time_s, prox: bool) -> D
         "color_mod": torch.empty((N, 3), dtype=f32, device=dev),
     }
     sun = fast.sun_unit(cfg.sun_dir)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.fused_march_launch(
+    args = [
         scene.grid_enc.data_ptr(), march_grid.data_ptr(), int(prox),
         scene.flags.data_ptr(), scene.flags.shape[0],
         Sx, Sy, Sz, int(scene.y_max),
@@ -120,13 +156,24 @@ def _launch(scene: Scene, s: _March, cfg: RenderConfig, time_s, prox: bool) -> D
         int(cfg.enable_materials), int(cfg.enable_shadows),
         float(time_s), float(sun[0]), float(sun[1]), float(sun[2]),
         *[t.data_ptr() for t in ins],
-        N,
+        N, int(image_w),
         *[t.data_ptr() for t in out.values()],
-        stream,
-    )
+        torch.cuda.current_stream(dev).cuda_stream,
+    ]
+    return lib.fused_march_launch, args, out, (ins, march_grid)
+
+
+def _launch(scene: Scene, s: _March, cfg: RenderConfig, time_s, prox: bool,
+            image_w: int) -> Dict[str, torch.Tensor]:
+    global LAUNCHES, LAUNCHES_PROX
+    from . import build
+
+    fn, args, out, _ = _launch_args(scene, s, cfg, time_s, prox, image_w)
+    err = fn(*args)
     if err != 0:
         raise RuntimeError(
-            f"fused_march kernel launch failed: {lib.kernel_error_string(err).decode()}"
+            f"fused_march kernel launch failed: "
+            f"{build.library('fused_march').kernel_error_string(err).decode()}"
         )
     if prox:
         LAUNCHES_PROX += 1
@@ -138,7 +185,7 @@ def _launch(scene: Scene, s: _March, cfg: RenderConfig, time_s, prox: bool) -> D
 
 
 def fused_march_call(scene: Scene, s: _March, cfg: RenderConfig, time_s=None,
-                     prox: bool = False) -> Dict[str, torch.Tensor]:
+                     prox: bool = False, image_w: int = 0) -> Dict[str, torch.Tensor]:
     """Run the fused march on a ``fast._init_state`` state ``s``.
 
     Returns the per-ray dict of the reference ``fused_march_call`` (:793-804):
@@ -146,7 +193,9 @@ def fused_march_call(scene: Scene, s: _March, cfg: RenderConfig, time_s=None,
     color_mod. CPU tensors run the plain version; CUDA tensors launch the
     kernel (or raise). ``prox`` is the reference's ``prox_stop`` (lean
     configs only): each ray stops at its first entry into an occupied 8^3
-    brick, with ``mat`` 1 where that cell is air.
+    brick, with ``mat`` 1 where that cell is air. ``image_w`` > 0 says the
+    rays are a row-major image that wide: the kernel then marches them in
+    8x4 pixel tiles per warp (the outputs are the same).
     """
     _check_prox(cfg, prox)
     if time_s is None:
@@ -158,14 +207,14 @@ def fused_march_call(scene: Scene, s: _March, cfg: RenderConfig, time_s=None,
         return fused_march_plain(scene, s, cfg, time_s, prox)
     if dev.type != "cuda":
         raise ValueError(f"fused_march: unsupported device {dev}")
-    return _launch(scene, s, cfg, float(time_s), prox)
+    return _launch(scene, s, cfg, float(time_s), prox, image_w)
 
 
 def render_rays_fused(scene: Scene, origin, dirs, cfg: RenderConfig, start_t=None, time_s=None,
-                      prox: bool = False):
+                      prox: bool = False, image_w: int = 0):
     """Fused-march render of arbitrary rays -> (rgb [N,3], aux), shaded by the
-    shared ``renderer.shade`` on the kernel's outputs (``prox``: see
-    ``fused_march_call``)."""
+    shared ``renderer.shade`` on the kernel's outputs (``prox``, ``image_w``:
+    see ``fused_march_call``)."""
     f32 = torch.float32
     dev = scene.device
     origin = torch.as_tensor(origin, dtype=f32, device=dev)
@@ -175,7 +224,7 @@ def render_rays_fused(scene: Scene, origin, dirs, cfg: RenderConfig, start_t=Non
         time_s = cfg.time
 
     s = fast._init_state(origin, dirs, torch.ones(N, dtype=f32, device=dev), start_t=start_t)
-    return shade_outputs(scene, fused_march_call(scene, s, cfg, time_s, prox), cfg)
+    return shade_outputs(scene, fused_march_call(scene, s, cfg, time_s, prox, image_w), cfg)
 
 
 def shade_outputs(scene: Scene, o: Dict[str, torch.Tensor], cfg: RenderConfig):
@@ -211,7 +260,7 @@ def shade_outputs(scene: Scene, o: Dict[str, torch.Tensor], cfg: RenderConfig):
 def render_image_fused(scene: Scene, camera: Camera, cfg: RenderConfig, time_s=None):
     """Full frame [H, W, 3] through the fused march, crosshair included."""
     dirs = ray_directions(camera, cfg.width, cfg.height, cfg.fov_degrees)
-    col, _ = render_rays_fused(scene, camera.pos, dirs, cfg, time_s=time_s)
+    col, _ = render_rays_fused(scene, camera.pos, dirs, cfg, time_s=time_s, image_w=cfg.width)
     return fast.crosshair(col.reshape(cfg.height, cfg.width, 3), cfg)
 
 
@@ -244,6 +293,13 @@ def seed_depth_fused(scene: Scene, origin, dirs, image_hw, coarse_factor: int = 
     """
     from ..render import progressive
 
-    march = functools.partial(render_rays_fused, prox=prox)
+    def march(sc, o, d, cfg, start_t=None):
+        # with image_hw, each pass marches one row-major image cfg.width wide,
+        # in warp tiles; a prox pass (about 3 trips a ray) is set by its
+        # stores, which natural order keeps whole
+        tiled = image_hw is not None and not prox
+        return render_rays_fused(sc, o, d, cfg, start_t=start_t, prox=prox,
+                                 image_w=cfg.width if tiled else 0)
+
     return progressive.guided_seeds(march, scene, origin, dirs, margin, image_hw, coarse_factor,
                                     max_steps)

@@ -123,21 +123,54 @@ def _raise_on(lib, err: int, name: str):
         raise RuntimeError(f"{name} kernel launch failed: {lib.kernel_error_string(err).decode()}")
 
 
+def _fwd_args(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading, lib=None):
+    """(launch function, its arguments, (surf, t_end, w_sum, t_exp)) for one
+    window_fwd launch on checked inputs; ``lib``: another build of the same
+    source."""
+    from . import build
+
+    args = _ray_args(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading)
+    lib = lib or build.library("fused_window")
+    N, dev = cell.shape[0], cell.device
+    surf = torch.empty((N, 3), dtype=torch.float32, device=dev)
+    t_end, w_sum, t_exp = (torch.empty(N, dtype=torch.float32, device=dev) for _ in range(3))
+    outs = (surf, t_end, w_sum, t_exp)
+    args += [t.data_ptr() for t in outs] + [torch.cuda.current_stream(dev).cuda_stream]
+    return lib.window_fwd_launch, args, outs
+
+
 def _launch_fwd(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading):
     global LAUNCHES_FWD
     from . import build
 
-    args = _ray_args(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading)
-    lib = build.library("fused_window")
-    N, dev = cell.shape[0], cell.device
-    surf = torch.empty((N, 3), dtype=torch.float32, device=dev)
-    t_end, w_sum, t_exp = (torch.empty(N, dtype=torch.float32, device=dev) for _ in range(3))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.window_fwd_launch(*args, surf.data_ptr(), t_end.data_ptr(), w_sum.data_ptr(),
-                                t_exp.data_ptr(), stream)
-    _raise_on(lib, err, "window_fwd")
+    fn, args, outs = _fwd_args(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading)
+    _raise_on(build.library("fused_window"), fn(*args), "window_fwd")
     LAUNCHES_FWD += 1
-    return surf, t_end, w_sum, t_exp
+    return outs
+
+
+def _bwd_args(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading,
+              g_surf, g_tend, surf, t_end, lib=None):
+    """(launch function, its arguments, field gradient [V, 4], tmax cotangent
+    [N, 3], abs_delta cotangent [N, 3], kept inputs) for one window_bwd
+    launch on checked inputs, the gradient field zero-filled; ``lib`` another
+    build of the same source."""
+    from . import build
+
+    args = _ray_args(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading)
+    lib = lib or build.library("fused_window")
+    N, dev = cell.shape[0], cell.device
+    _check(g_surf, "g_surf", torch.float32, (N, 3), dev)
+    _check(surf, "surf", torch.float32, (N, 3), dev)
+    for t, name in ((g_tend, "g_tend"), (t_end, "t_end")):
+        _check(t, name, torch.float32, (N,), dev)
+    grad = torch.zeros_like(field)  # Adam takes the dense gradient
+    g_tmax = torch.empty((N, 3), dtype=torch.float32, device=dev)
+    g_abs = torch.empty((N, 3), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args += [g_surf.data_ptr(), g_tend.data_ptr(), surf.data_ptr(), t_end.data_ptr(),
+             grad.data_ptr(), g_tmax.data_ptr(), g_abs.data_ptr(), stream]
+    return lib.window_bwd_launch, args, grad, g_tmax, g_abs, (g_surf, g_tend, surf, t_end)
 
 
 def _launch_bwd(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading,
@@ -147,23 +180,27 @@ def _launch_bwd(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading,
     global LAUNCHES_BWD
     from . import build
 
-    args = _ray_args(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading)
-    lib = build.library("fused_window")
-    N, dev = cell.shape[0], cell.device
-    _check(g_surf, "g_surf", torch.float32, (N, 3), dev)
-    _check(surf, "surf", torch.float32, (N, 3), dev)
-    for t, name in ((g_tend, "g_tend"), (t_end, "t_end")):
-        _check(t, name, torch.float32, (N,), dev)
-    grad = torch.zeros_like(field)
-    g_tmax = torch.empty((N, 3), dtype=torch.float32, device=dev)
-    g_abs = torch.empty((N, 3), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.window_bwd_launch(*args, g_surf.data_ptr(), g_tend.data_ptr(), surf.data_ptr(),
-                                t_end.data_ptr(), grad.data_ptr(), g_tmax.data_ptr(),
-                                g_abs.data_ptr(), stream)
-    _raise_on(lib, err, "window_bwd")
+    fn, args, grad, g_tmax, g_abs, _ = _bwd_args(field, cell, tmax, istep, abs_delta, shape3,
+                                                 sun, S, shading, g_surf, g_tend, surf, t_end)
+    _raise_on(build.library("fused_window"), fn(*args), "window_bwd")
     LAUNCHES_BWD += 1
     return grad, g_tmax, g_abs
+
+
+def occupancy():
+    """Blocks per SM and block size of window_fwd and window_bwd, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    import ctypes
+
+    from . import build
+
+    lib = build.library("fused_window")
+    out = {}
+    for which, name in ((0, "window_fwd"), (1, "window_bwd"), (2, "window_bwd above a wave")):
+        threads = ctypes.c_int(0)
+        out[name] = lib.window_blocks_per_sm(which, ctypes.byref(threads))
+        out[f"{name} threads"] = threads.value
+    return out
 
 
 class _WindowFn(torch.autograd.Function):

@@ -77,6 +77,8 @@ def guided_seeds(hard_render, scene, origin, dirs, margin: float, image_hw=None,
         _, caux = hard_render(scene, origin, cdirs, RenderConfig(width=W // cf, height=H // cf, **kw))
         depth = seeds_from_hits(caux, origin, 0.0)
         start_t = seed_from_depth(depth.reshape(H // cf, W // cf), cf, H, W)
-    _, aux = hard_render(scene, origin, dirs, RenderConfig(width=1, height=dirs.shape[0], **kw),
+    # the fine pass's config is the image's own when the rays are one
+    fw, fh = (image_hw[1], image_hw[0]) if image_hw is not None else (1, dirs.shape[0])
+    _, aux = hard_render(scene, origin, dirs, RenderConfig(width=fw, height=fh, **kw),
                          start_t=start_t)
     return seeds_from_hits(aux, origin, margin, start_t)
