@@ -14,8 +14,10 @@ Phases (any failure raises, and the script exits non-zero):
                 on the same card and inputs: full-feature and lean from the
                 bench camera, and a water view with mirror and glass blocks
                 at time 1.2; and the CLI's default view at its 512x512
-                frame size. Contract: every output of the march equal to
-                the bit (integer fields equal, float fields bit-equal), and
+                frame size, each launched in 8x4 warp tiles (as frames and
+                the exact seed passes launch it) and in natural order (as
+                ray batches do). Contract: every output of the march equal
+                to the bit (integer fields equal, float fields bit-equal), and
                 the shaded images within tests/test_render_parity.py
                 assert_images_close (|diff| <= 1e-5 on >= 99% of pixels).
   5. frames  -- the port's CLI, in-process: ``render`` at its defaults, then
@@ -28,9 +30,9 @@ Phases (any failure raises, and the script exits non-zero):
                 frame; the 256^2 coarse seed pass; a 64^2 target view of the
                 fit), each with its lane efficiency (trips of live lanes over
                 32 x the warps' trips: from the plain loop's per-ray trips
-                for one ray per thread in natural order and in 8x4 tiles,
-                and as counted by the persistent kernel); at 1024^2 the
-                wrapper's ms, the plain version's and the whole frame's.
+                for one ray per thread in natural order and in 8x4 tiles);
+                at 1024^2 the wrapper's ms (the kernels line's ms), the
+                plain version's and the whole frame's.
   7. train   -- the training slice at the bench shapes (default world,
                 solid_density 50, bench camera, 1024x1024 rays, 24 steps):
                 a. seed: seed_depth_fused (coarse x4 then full-resolution lean
@@ -52,7 +54,9 @@ Phases (any failure raises, and the script exits non-zero):
                    peak device memory of a train step; window_bwd's kernel
                    alone and its gradient zero-fill alone, its occupancy and
                    its gradient row updates, at 1024^2 and at the train
-                   batches (16384 and the CLI fit's 8192 rays). The
+                   batches (16384 and the CLI fit's 8192 rays), where its
+                   gradients are held to window_plain's autograd (1e-5
+                   max-scaled: each block size the wrapper picks). The
                    kernels' launch counts are reset just before c and read
                    just after d.
   8. bricks  -- the brick engine (kernels/brick_kernels.py, csrc/brick_march.cu)
@@ -233,10 +237,14 @@ def march_state(scene, pos, dirn, side):
 
 
 def parity(name, scene, s, rcfg, time_s, side):
-    """Kernel vs plain version on one state; returns (max_abs_err, kernel dict)."""
+    """Kernel vs plain version on one state, the kernel launched as frames and
+    the exact seed passes launch it (8x4 warp tiles over the side x side
+    image) and in natural order (as ray batches launch it); returns
+    (max_abs_err, the tiled launch's dict)."""
     from raytracing_test_tpu_torch.kernels import fused_march as fm
 
-    ok = fm.fused_march_call(scene, s, rcfg, time_s)
+    ok = fm.fused_march_call(scene, s, rcfg, time_s, image_w=side)
+    on = fm.fused_march_call(scene, s, rcfg, time_s)
     torch.cuda.synchronize()
     op = fm.fused_march_plain(scene, s, rcfg, time_s)
     ck, _ = fm.shade_outputs(scene, ok, rcfg)
@@ -253,7 +261,9 @@ def parity(name, scene, s, rcfg, time_s, side):
           f"hit {float((ok['mat'] != 0).float().mean()):.4f}")
     if bad > MAX_BAD_FRAC or mat_eq < MIN_EQ_FRAC or cell_eq < MIN_EQ_FRAC:
         raise AssertionError(f"{name}: kernel disagrees with the plain version")
-    march_parity(f"{name} march outputs", ok, op, card_line())
+    card = card_line()
+    march_parity(f"{name} march outputs, 8x4 warp tiles", ok, op, card)
+    march_parity(f"{name} march outputs, natural order", on, op, card)
     return float(d.max()), ok
 
 
@@ -308,15 +318,14 @@ def natural_order(n: int) -> torch.Tensor:
     return torch.cat([torch.arange(n), torch.full((pad,), -1, dtype=torch.int64)])
 
 
-def tile_order_for(n: int, width: int, tile_w: int = 8) -> torch.Tensor:
-    """Ray of each thread of a launch in warp tiles tile_w wide over a
-    row-major image ``width`` wide (natural order when the rays are no such
-    image)."""
+def tile_order_for(n: int, width: int) -> torch.Tensor:
+    """Ray of each thread of a launch in 8x4 warp tiles over a row-major
+    image ``width`` wide (natural order when the rays are no such image)."""
     from raytracing_test_tpu_torch.kernels import fused_march as fm
 
     if not width or n % width:
         return natural_order(n)
-    return fm.tile_order(width, n // width, tile_w)
+    return fm.tile_order(width, n // width)
 
 
 def lane_efficiency(p_trips, s_trips, order) -> dict:
@@ -455,8 +464,9 @@ def raw_march_ms(scene, s, rcfg, image_w, prox=False, reps=20):
 def march_phase(dev, card, side, scene, s_bench, o_full, full, lean, cli_state, cli_cfg):
     """Phase 6: the march kernel at the shapes the main paths launch, its
     occupancy and lane efficiency, the plain version and the whole frame.
-    Returns ({mode: (kernel ms, plain ms)} at side^2, bound of the full frame,
-    {shape: (kernel ms, bound ms)})."""
+    Returns ({mode: (kernel ms through its wrapper, plain ms)} at side^2,
+    bound of the full frame, {shape: (kernel ms on raw launches, bound
+    ms)})."""
     from raytracing_test_tpu_torch.app import fit
     from raytracing_test_tpu_torch.config import RenderConfig, WorldConfig
     from raytracing_test_tpu_torch.kernels import fused_march as fm
@@ -524,10 +534,10 @@ def march_phase(dev, card, side, scene, s_bench, o_full, full, lean, cli_state, 
                        reps=20, warmup=3)
         p_ms = cuda_ms(lambda: fm.fused_march_plain(scene, s_bench, rcfg, 0.0), reps=3, warmup=1)
         f_ms = cuda_ms(lambda: fm.render_image_fused(scene, cam, rcfg, 0.0), reps=10, warmup=2)
-        times[name] = (k_ms, p_ms)
-        print(f"timing {name} {side}x{side}: kernel {k_ms:.4f} ms/frame ({n / k_ms * 1e3:.4e} "
-              f"rays/s), through its wrapper {w_ms:.4f} ms, plain {p_ms:.3f} ms/frame "
-              f"({n / p_ms * 1e3:.4e} rays/s), speedup {p_ms / k_ms:.1f}x, whole frame "
+        times[name] = (w_ms, p_ms)
+        print(f"timing {name} {side}x{side}: kernel through its wrapper {w_ms:.4f} ms/frame "
+              f"({n / w_ms * 1e3:.4e} rays/s; raw launches {k_ms:.4f} ms), plain {p_ms:.3f} "
+              f"ms/frame ({n / p_ms * 1e3:.4e} rays/s), speedup {p_ms / w_ms:.1f}x, whole frame "
               f"(rays+kernel+shade) {f_ms:.4f} ms | {card}")
 
     # full-feature frame: grid_enc and palette flags read once, 72 bytes of
@@ -537,7 +547,8 @@ def march_phase(dev, card, side, scene, s_bench, o_full, full, lean, cli_state, 
     march_bound = bound(march_bytes, crossings * MARCH_OPS_PER_CROSSING)
     print(f"bound fused_march full {side}x{side}: {march_bytes} bytes, {crossings} primary "
           f"crossings -> {march_bound[0]:.4f} ms ({march_bound[1]}), "
-          f"kernel at {march_bound[0] / times['full'][0]:.3f} of it | {card}")
+          f"kernel at {march_bound[0] / times['full'][0]:.3f} of it through its wrapper, "
+          f"{march_bound[0] / raw[f'full {side}^2 (bench frame)'][0]:.3f} on raw launches | {card}")
     return times, march_bound, raw
 
 
@@ -557,18 +568,37 @@ def window_bounds(wargs):
 
 
 def window_bwd_diagnosis(name, card, fw, wargs, g_surf, g_tend, surf, t_end):
-    """The window pair on one batch, as raw launches on fixed inputs:
-    window_fwd, window_bwd's kernel alone (into one zeroed gradient) and the
-    gradient's zero-fill alone, the occupancy, the gradient row updates (one float4 atomicAdd
-    each) from the plain DDA, and the bounds. Returns {kernel: (ms, bound
-    ms)}, window_bwd's ms with its zero-fill."""
+    """window_bwd's gradients on one batch against window_plain's autograd
+    (GRAD_TOL max-scaled: the block size the wrapper picks for this batch),
+    then the window pair as raw launches on fixed inputs: window_fwd,
+    window_bwd's kernel alone (into one zeroed gradient) and the gradient's
+    zero-fill alone, the occupancy, the gradient row updates (one float4
+    atomicAdd each) from the plain DDA, and the bounds. Returns {kernel:
+    (ms, bound ms)}, window_bwd's ms with its zero-fill, and "grad_err", the
+    largest gradient difference."""
     fwd_fn, fwd_args, _ = fw._fwd_args(*wargs)
-    fn, args, grad, *_ = fw._bwd_args(*wargs, g_surf, g_tend, surf, t_end)
+    fn, args, grad, g_tmax, g_abs, _ = fw._bwd_args(*wargs, g_surf, g_tend, surf, t_end)
 
     def launch(f, a):
         if f(*a) != 0:
-            raise AssertionError("a timing launch of a window kernel failed")
+            raise AssertionError("a launch of a window kernel failed")
     n = wargs[1].shape[0]
+    launch(fn, args)
+    leaves = [wargs[i].detach().clone().requires_grad_(True) for i in (0, 2, 4)]
+    plain = fw.window_plain(leaves[0], wargs[1], leaves[1], wargs[3], leaves[2], *wargs[5:])
+    ref = torch.autograd.grad(plain[:2], leaves, (g_surf, g_tend))
+    scaled, grad_err = {}, 0.0
+    for key, a, b in zip(("field", "tmax", "abs_delta"), (grad, g_tmax, g_abs), ref):
+        m = torch.isfinite(b)
+        if not torch.equal(torch.isfinite(a), m):
+            raise AssertionError(f"window_bwd {name}: {key} gradient finite on other entries")
+        scaled[key] = max_scaled(a[m], b[m])
+        grad_err = max(grad_err, float((a[m] - b[m]).abs().max()))
+    print(f"parity window_bwd {name} vs window_plain's autograd: gradients max-scaled "
+          + " ".join(f"{k} {v:.3e}" for k, v in scaled.items()) + f" | {card}")
+    if max(scaled.values()) > GRAD_TOL:
+        raise AssertionError(f"window_bwd {name}: gradients disagree beyond {GRAD_TOL} max-scaled")
+    del plain, ref, leaves
     reps = 20 if n >= 2**18 else 100
     f_ms = cuda_ms(lambda: launch(fwd_fn, fwd_args), reps=reps, warmup=3)
     k_ms = cuda_ms(lambda: launch(fn, args), reps=reps, warmup=3)
@@ -581,7 +611,7 @@ def window_bwd_diagnosis(name, card, fw, wargs, g_surf, g_tend, surf, t_end):
           f"touched, {upd['samples_in_grid']} in-grid samples, {upd['row_updates_per_warp']} "
           f"row updates (one per warp, step and row), {upd['row_updates_per_block128']} if "
           f"summed per block of 128 | {card}")
-    return {"window_fwd": (f_ms, fb[0]), "window_bwd": (k_ms + z_ms, bb[0])}
+    return {"window_fwd": (f_ms, fb[0]), "window_bwd": (k_ms + z_ms, bb[0]), "grad_err": grad_err}
 
 
 def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
@@ -673,8 +703,9 @@ def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
     seed_ms = cuda_ms(lambda: fm.seed_depth_fused(scene, cam.pos, dirs, (side, side)), reps=10, warmup=2)
     fwd_ms = cuda_ms(lambda: fw._launch_fwd(*wargs), reps=20, warmup=3)
     bwd_ms = cuda_ms(lambda: fw._launch_bwd(*wargs, g_surf, g_tend, surf, t_end), reps=20, warmup=3)
-    window_bwd_diagnosis(f"{side}^2 x {NUM_STEPS} (bench seeds)", card, fw, wargs, g_surf, g_tend,
-                         surf, t_end)
+    bench_bwd = window_bwd_diagnosis(f"{side}^2 x {NUM_STEPS} (bench seeds)", card, fw, wargs,
+                                     g_surf, g_tend, surf, t_end)
+    grad_err = max(grad_err, bench_bwd["grad_err"])
     # the train path's batches: rays of the fit's ring views, seeded on the scene
     rng = np.random.default_rng(1)
     out["batches"] = {}
@@ -689,6 +720,7 @@ def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
             f"{nb} x {NUM_STEPS} (a train batch)", card, fw, bargs,
             torch.full((nb, 3), 1.0 / (3 * nb), device=dev), torch.zeros(nb, device=dev),
             b_surf, b_tend)
+        grad_err = max(grad_err, out["batches"][nb]["grad_err"])
 
     def step(render):
         d = ds.density.detach().requires_grad_(True)
@@ -1273,11 +1305,12 @@ def prox_phase(dev, card, side, grid, pal, scene, cli):
     nbytes = prox_enc.numel() + scene.flags.numel() * 4 + n * (72 + 88)
     b = bound(nbytes, crossings * MARCH_OPS_PER_CROSSING)
     print(f"bound fused_march_prox full pass: {nbytes} bytes, {crossings} crossings -> {b[0]:.4f} ms "
-          f"({b[1]}), kernel at {b[0] / full_ms:.3f} of it | {card}")
+          f"({b[1]}), kernel at {b[0] / wrapped_ms:.3f} of it through its wrapper, "
+          f"{b[0] / full_ms:.3f} on raw launches | {card}")
     entry = dict(name="fused_march_prox", route="cuda",
                  source="raytracing_test_tpu_torch/csrc/fused_march.cu",
                  replaces="raytracing_test_tpu/kernels/fused_march.py:148",
-                 launches=main["fused_march_prox"], max_abs_err=err, ms=full_ms, plain_ms=plain_ms,
+                 launches=main["fused_march_prox"], max_abs_err=err, ms=wrapped_ms, plain_ms=plain_ms,
                  bound_ms=b[0], bound_by=b[1], library_ms=None)
     return entry, {"coarse": (coarse_ms, coarse_b[0]), "full": (full_ms, b[0])}
 

@@ -1,48 +1,54 @@
-"""A/B timing and diagnosis of the fused march and the window backward on
-one CUDA card: the kernels of this checkout against the same kernels built
-from an older copy of their sources.
+"""Old-against-new timing of the port's march and window-backward kernels on
+one CUDA card, each tree of the port in a process of its own.
 
-    git archive <commit> raytracing_test_tpu_torch/csrc | tar -x -C _ab_parent
-    python3 kernel_ab.py --old _ab_parent [--skip-new]
+    mkdir -p _ab/old && git archive <commit> raytracing_test_tpu_torch | tar -x -C _ab/old
+    python3 kernel_ab.py _ab/old .
 
-``--old`` names a directory that holds ``raytracing_test_tpu_torch/csrc/``
-of the older commit, whose launch functions have the interface of that
-commit (the one-thread-per-ray march and window kernels). Each old source is
-built with this checkout's nvcc flags inside a small wrapper that exports
-``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` for its kernels. Old and
-new are timed in turns (old, new, new, old) with CUDA events on raw
-launches of fixed inputs, at the shapes the main paths launch:
+Each TREE is a directory that holds a ``raytracing_test_tpu_torch/``
+package of PR 4 or later (a checkout, or an unpacked ``git archive`` of
+one; ``_ab/`` is gitignored). A tree's process imports that tree's
+package, builds its kernels from that tree's sources into its own
+``_build/``, and drives the same inputs through the wrappers that every
+such tree has (``fused_march_call``, ``_launch_bwd``), at the shapes the
+main paths launch:
 
-  march   -- 1024^2 bench camera full, full without shadows, lean, prox
-             (both seed passes' start points); 512^2 the CLI's render view;
-             full at 256^2 from the bench camera; 256^2 the coarse seed
-             pass; 64^2 one target view of the fit (materials on, shadows
-             off); a 16384-ray train batch's seed;
-  window  -- window_bwd at 1024^2 x 24 (bench seeds), and at the train
-             batch 16384 x 24 and the CLI fit's 8192 x 24 (rays drawn from
-             the fit's eight 64^2 ring views, seeded by the lean march),
-             with the gradient's zero-fill timed apart.
+  march       -- from the bench camera: 1024^2 full, full without shadows,
+                 lean (the seed's fine pass), both prox passes (1024^2 and
+                 256^2) and full at 256^2; 256^2 lean (the seed's coarse
+                 pass); the CLI's 512^2 render view; one 64^2 target view
+                 of the fit (materials on, shadows off); the lean seeds of
+                 a 16384- and an 8192-ray train batch. Frames and the
+                 exact seed passes get the image width where the tree's
+                 ``fused_march_call`` takes ``image_w``, as its main path
+                 passes it;
+  window_bwd  -- 1024^2 x 24 on the bench seeds, and 16384 x 24 and
+                 8192 x 24 on train batches (rays of the fit's ring views,
+                 seeded by the lean march).
 
-Every new launch is held against the old one on the same inputs: the march
-to the bit in every output, window_bwd's gradients within 1e-5 max-scaled.
-Beside the default build, builds of the same sources with other knobs
-(nvcc -D: MARCH_VARIANTS, WINDOW_VARIANTS) are timed in the same turns:
-the design steps that were tried. Each is timed twice with CUDA events
-around a run of launches. Diagnosis printed beside the times: registers and
-spills (nvcc -Xptxas -v), blocks per SM, the march's lane efficiency from
-the plain loop's per-ray trip counts (natural order, 8x4 and 16x2 warp
-tiles; primary and shadow loop), and the window's gradient row updates
-(one per warp, step and distinct in-grid row). Output: text, and one JSON
-line last.
+The trees run in turns, forward then back (A, B, ..., B, A), so every tree
+is timed before and after every other. In each turn a kernel's time is the
+mean device time of its launches over 20 calls of its wrapper, read by
+torch.profiler in one session (window_bwd's gradient zero-fill is another
+kernel: it is timed apart, with CUDA events), beside the wrapper's own
+time per call (CUDA events, host work included).
+
+In its first turn each tree is held to its own plain versions: every march
+output equal to the bit (fused_march_plain), window_bwd's gradients within
+1e-5 max-scaled of window_plain's autograd. It prints a digest of each
+launch's outputs (equal digests: equal bits across trees), its nvcc
+register report and, where its wrappers export them, its blocks per SM.
+The line before the last holds the card's name and power limit; the last
+is one JSON object with every time. Exits 2 without a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
+import hashlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -51,395 +57,274 @@ import torch
 
 import chip_smoke as cs
 
-OCC_WRAPPER = """
-#include "{src}"
-extern "C" int ab_blocks_per_sm(int which, int threads) {{
-  int blocks = -1;
-  {body}
-  return blocks;
-}}
-"""
-OCC_BODY = {
-    "fused_march": "if (which == 0) cudaOccupancyMaxActiveBlocksPerMultiprocessor("
-                   "&blocks, fused_march_kernel, threads, 0);",
-    "fused_window": "if (which == 0) cudaOccupancyMaxActiveBlocksPerMultiprocessor("
-                    "&blocks, window_fwd_kernel, threads, 0);\n"
-                    "  if (which == 1) cudaOccupancyMaxActiveBlocksPerMultiprocessor("
-                    "&blocks, window_bwd_kernel, threads, 0);",
-}
+SIDE, CF = cs.FULL, 4  # frame side, coarse factor of the seed
+REPS = 20  # calls of each wrapper per shape and turn
+KERNEL_NAMES = {"march": "fused_march_kernel", "window_bwd": "window_bwd_kernel"}
 
 
-def build_old(old_root: Path):
-    """Build the old march and window sources with occupancy exports.
-    Returns ({name: CDLL}, {name: register lines})."""
-    from raytracing_test_tpu_torch.kernels import build
-
-    csrc = (old_root / "raytracing_test_tpu_torch" / "csrc").resolve()
-    out_dir = old_root.resolve() / "_ab_build"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    libs, reports, procs = {}, {}, {}
-    for name in ("fused_march", "fused_window"):
-        wrap = out_dir / f"{name}_ab.cu"
-        wrap.write_text(OCC_WRAPPER.format(src=csrc / f"{name}.cu", body=OCC_BODY[name]))
-        so = out_dir / f"lib{name}_old.so"
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-o", str(so), str(wrap)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                        text=True), so)
-    for name, (proc, so) in procs.items():
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the old {name}:\n{stdout}\n{stderr}")
-        reports[name] = [ln.strip() for ln in (stdout + stderr).splitlines()
-                         if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-        lib = ctypes.CDLL(str(so))
-        _declare_old(name, lib)
-        lib.ab_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.ab_blocks_per_sm.restype = ctypes.c_int
-        libs[name] = lib
-    return libs, reports
-
-
-def _declare_old(name, lib):
-    """The launch interface of the one-thread-per-ray kernels with runtime
-    mode flags (fused_march_launch without the image width)."""
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "fused_march":
-        lib.fused_march_launch.argtypes = (
-            [P, P, I, P, I] + [I] * 4 + [I] * 4 + [F] * 4 + [P] * 6 + [I] + [P] * 12 + [P])
-        lib.fused_march_launch.restype = ctypes.c_int
-    else:
-        rays = [P, I, I, I] + [P] * 4 + [I] * 3 + [F] * 3
-        lib.window_fwd_launch.argtypes = rays + [P] * 4 + [P]
-        lib.window_fwd_launch.restype = ctypes.c_int
-        lib.window_bwd_launch.argtypes = rays + [P] * 4 + [P] * 3 + [P]
-        lib.window_bwd_launch.restype = ctypes.c_int
-
-
-OUT_KEYS = ("mat0", "mat", "cell", "la", "refl", "shad", "steps", "dir", "step", "seg_origin",
-            "lt", "color_mod")
-
-
-def old_march(lib, scene, s, cfg, time_s, prox):
-    """(launch thunk, outputs) of the old march kernel on fixed inputs."""
-    from raytracing_test_tpu_torch.render import fast
-
-    N, dev = s.cell.shape[0], s.cell.device
-    i32, f32 = torch.int32, torch.float32
-    out = {k: torch.empty((N, 3) if k in ("cell", "dir", "step", "seg_origin", "color_mod")
-                          else (N,), dtype=f32 if k in ("dir", "step", "seg_origin", "lt",
-                                                         "color_mod") else i32, device=dev)
-           for k in OUT_KEYS}
-    sun = fast.sun_unit(cfg.sun_dir)
-    grid = scene.prox_enc if prox else scene.grid_enc
-    Sx, Sy, Sz = scene.shape3
-    args = [scene.grid_enc.data_ptr(), grid.data_ptr(), int(prox), scene.flags.data_ptr(),
-            scene.flags.shape[0], Sx, Sy, Sz, int(scene.y_max), int(cfg.max_steps),
-            int(cfg.shadow_steps), int(cfg.enable_materials), int(cfg.enable_shadows),
-            float(time_s), float(sun[0]), float(sun[1]), float(sun[2]),
-            *[t.data_ptr() for t in (s.cell, s.tmax, s.dir, s.step, s.abs_delta, s.seg_origin)],
-            N, *[t.data_ptr() for t in out.values()],
-            torch.cuda.current_stream(dev).cuda_stream]
-
-    def launch():
-        if lib.fused_march_launch(*args) != 0:
-            raise RuntimeError("old fused_march launch failed")
-    return launch, out
-
-
-# Builds of this checkout's sources with other knobs (nvcc -D), timed beside
-# the default build: the design steps that were tried.
-MARCH_VARIANTS = {
-    "16x2 tiles": ["-DRT_MARCH_TILE_W=16"],
-    "materials modes bound to 1 block/SM": ["-DRT_MARCH_MIN_BLOCKS_MAT=1"],
-}
-WINDOW_VARIANTS = {
-    "128 threads at every size": ["-DRT_WINDOW_BWD_THREADS_LARGE=128"],
-}
-
-
-def build_variants():
-    """{(source, variant): (CDLL, register lines)} of this checkout's march
-    and window sources built with each variant's extra flags."""
-    from raytracing_test_tpu_torch.kernels import build
-
-    out_dir = build.BUILD_DIR / "ab"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, variants in (("fused_march", MARCH_VARIANTS), ("fused_window", WINDOW_VARIANTS)):
-        for k, (v, flags) in enumerate(variants.items()):
-            so = out_dir / f"lib{name}_variant{k}.so"
-            cmd = [build._nvcc(), *build.NVCC_FLAGS, *flags, "-o", str(so),
-                   str(build.CSRC_DIR / f"{name}.cu")]
-            procs[(name, v)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                 stderr=subprocess.PIPE, text=True), so)
-    libs = {}
-    for (name, v), (proc, so) in procs.items():
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name} {v}:\n{stdout}\n{stderr}")
-        lib = ctypes.CDLL(str(so))
-        build._DECLARE[name](lib)
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        libs[(name, v)] = (lib, [ln.strip() for ln in (stdout + stderr).splitlines()
-                                 if "registers" in ln or "spill" in ln])
-    return libs
-
-
-def new_march(scene, s, cfg, time_s, prox, image_w, lib=None):
-    """(launch thunk, outputs) of this checkout's march kernel."""
-    from raytracing_test_tpu_torch.kernels import fused_march as fm
-
-    fn, args, out, keep = fm._launch_args(scene, s, cfg, float(time_s), prox, image_w, lib=lib)
-
-    def launch():
-        if fn(*args) != 0:
-            raise RuntimeError("fused_march launch failed")
-    launch.keep = keep
-    return launch, out
-
-
-def same_bits(a, b) -> int:
-    """Rays on which two march output dicts differ in any field."""
-    bad = torch.zeros(a["mat"].shape[0], dtype=torch.bool, device=a["mat"].device)
-    for k in OUT_KEYS:
-        x, y = a[k], b[k]
-        if x.dtype == torch.bool or y.dtype == torch.bool:
-            x, y = x.to(torch.int32), y.to(torch.int32)
-        if x.is_floating_point():
-            x, y = x.view(torch.int32), y.view(torch.int32)
-        bad |= (x != y).reshape(x.shape[0], -1).any(dim=1)
-    return int(bad.sum())
-
-
-def turns(fns, reps, warmup):
-    """{name: [ms, ms]}: each thunk timed twice with CUDA events around
-    ``reps`` launches, in turns forward then back (old, a, b, ..., b, a,
-    old). On an H100 the events read the kernels' device time at every
-    shape here: torch.profiler's device time agreed within 5%."""
-    names = list(fns)
-    ms = {k: [] for k in names}
-    for k in names + names[::-1]:
-        ms[k].append(cs.cuda_ms(fns[k], reps, warmup))
-    return ms
-
-
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--old", required=True, type=Path)
-    ap.add_argument("--skip-new", action="store_true")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("kernel_ab: no CUDA card", file=sys.stderr)
-        return 2
-    from raytracing_test_tpu_torch.app import fit
+def march_cases(pkg, scene, dev):
+    """[(name, state, config, prox, image width as the main path passes it)]."""
+    from raytracing_test_tpu_torch.app import cli, fit
     from raytracing_test_tpu_torch.config import CameraConfig, RenderConfig, WorldConfig
-    from raytracing_test_tpu_torch.core.flatten import palette_arrays, scene_from_grid
-    from raytracing_test_tpu_torch.kernels import build
-    from raytracing_test_tpu_torch.kernels import fused_march as fm
-    from raytracing_test_tpu_torch.kernels import fused_window as fw
     from raytracing_test_tpu_torch.render import fast, progressive
     from raytracing_test_tpu_torch.render.camera import Camera, ray_directions, yaw_pitch_dir
-    from raytracing_test_tpu_torch.render.diff import _pack_fields, diff_scene_from_grid
-    from raytracing_test_tpu_torch.worldgen import terrain
 
-    dev = torch.device("cuda:0")
-    card = cs.card_line()
-    print(f"device: {torch.cuda.get_device_name(0)} | {card} | torch {torch.__version__} "
-          f"cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
-    old, old_reports = build_old(args.old)
-    variants = {}
-    if not args.skip_new:
-        build.build_all()
-        variants = build_variants()
-    print(f"build: {time.perf_counter() - t0:.1f} s")
-    result = {"card": card, "march": {}, "window_bwd": {}, "registers": {}}
-    for name, lines in old_reports.items():
-        for ln in lines:
-            print(f"  old {name}: {ln}")
-        result["registers"][f"old {name}"] = lines
-    if not args.skip_new:
-        for name in ("fused_march", "fused_window"):
-            lines = [ln.strip() for ln in build.BUILD_INFO.get(name, {}).get(
-                "nvcc_report", "").splitlines() if "registers" in ln or "spill" in ln]
-            result["registers"][f"new {name}"] = lines
-            for ln in lines:
-                print(f"  new {name}: {ln}")
-        for (name, v), (_, lines) in variants.items():
-            result["registers"][f"{name} {v}"] = lines
-            for ln in lines:
-                print(f"  {name} {v}: {ln}")
-    occ_old = {"march 128": old["fused_march"].ab_blocks_per_sm(0, 128),
-               "window_fwd 128": old["fused_window"].ab_blocks_per_sm(0, 128),
-               "window_bwd 128": old["fused_window"].ab_blocks_per_sm(1, 128)}
-    print(f"old blocks per SM (128 threads): {occ_old} | {card}")
-    result["blocks_per_sm"] = {"old": occ_old}
-    if not args.skip_new:
-        occ = fm.occupancy() | fw.occupancy()
-        print(f"new blocks per SM: {occ} | {card}")
-        result["blocks_per_sm"]["new"] = occ
-        for (name, v), (lib, _) in variants.items():
-            if name == "fused_march":
-                occ = {m: lib.fused_march_blocks_per_sm(i) for m, i in fm._MODES.items()}
-            else:
-                t = ctypes.c_int(0)
-                occ = {"window_bwd": lib.window_blocks_per_sm(1, ctypes.byref(t)),
-                       "threads": t.value,
-                       "window_bwd above a wave": lib.window_blocks_per_sm(2, ctypes.byref(t)),
-                       "threads above a wave": t.value}
-            result["blocks_per_sm"][f"{name} {v}"] = occ
-            print(f"{name} {v} blocks per SM: {occ} | {card}")
-
-    grid, pal = terrain.gen_world_grid(WorldConfig())
-    scene = scene_from_grid(grid, pal, dev)
-    _ = scene.prox_enc
-    side, cf = cs.FULL, 4
-    lean_kw = dict(enable_materials=False, enable_shadows=False)
-    full = RenderConfig(width=side, height=side)
+    fm = pkg["fm"]
+    lean = dict(enable_materials=False, enable_shadows=False)
     cam = Camera(pos=torch.tensor(cs.BENCH_POS, device=dev), dir=torch.tensor(cs.BENCH_DIR, device=dev))
-    dirs = ray_directions(cam, side, side)
-    s_bench = fast._init_state(cam.pos, dirs, torch.ones(side * side, device=dev))
-    cdirs = dirs.reshape(side, side, 3)[cf // 2::cf, cf // 2::cf].reshape(-1, 3).contiguous()
+    dirs = ray_directions(cam, SIDE, SIDE)
+    s_bench = fast._init_state(cam.pos, dirs, torch.ones(SIDE * SIDE, device=dev))
+    cdirs = dirs.reshape(SIDE, SIDE, 3)[CF // 2::CF, CF // 2::CF].reshape(-1, 3).contiguous()
     s_coarse = fast._init_state(cam.pos, cdirs, torch.ones(cdirs.shape[0], device=dev))
-    rc_prox = RenderConfig(width=side // cf, height=side // cf, **lean_kw)
-    depth = fm.hit_seeds(scene, cam.pos, cdirs, rc_prox, margin=0.0, prox=True)
-    st = progressive.seed_from_depth(depth.reshape(side // cf, side // cf), cf, side, side)
-    s_prox = fast._init_state(cam.pos, dirs, torch.ones(side * side, device=dev), start_t=st)
-    from raytracing_test_tpu_torch.app import cli
-
+    rc = RenderConfig(width=SIDE // CF, height=SIDE // CF, **lean)
+    depth = fm.hit_seeds(scene, cam.pos, cdirs, rc, margin=0.0, prox=True)
+    st = progressive.seed_from_depth(depth.reshape(SIDE // CF, SIDE // CF), CF, SIDE, SIDE)
+    s_prox = fast._init_state(cam.pos, dirs, torch.ones(SIDE * SIDE, device=dev), start_t=st)
     rd = cli.build_parser().parse_args(["render"])
     s_cli = cs.march_state(scene, CameraConfig().pos, yaw_pitch_dir(rd.yaw, rd.pitch), rd.width)
     s_256 = cs.march_state(scene, cs.BENCH_POS, cs.BENCH_DIR, 256)
     g = WorldConfig().grid_shape
-    cams = fit.ring_cameras((g[0] / 2, g[1] / 3, g[2] / 2), 0.8 * g[0], 0.9 * g[1], 8, device=dev)
-    tdirs = ray_directions(cams[0], 64, 64)
-    s_tgt = fast._init_state(cams[0].pos, tdirs, torch.ones(64 * 64, device=dev))
-    origins, rdirs, _ = fit.make_targets(scene, cams, 64)
-    rng = np.random.default_rng(0)
-    batches = {}
-    for nb in (cs.TRAIN_BATCH, 8192):
-        idx = torch.from_numpy(rng.integers(0, origins.shape[0], nb)).to(dev)
-        batches[nb] = (origins[idx].contiguous(), rdirs[idx].contiguous())
-    o_b, d_b = batches[cs.TRAIN_BATCH]
-    s_batch = fast._init_state(o_b, d_b, torch.ones(d_b.shape[0], device=dev))
-
-    # name, state, cfg, prox, image width, the width its wrapper passes
-    # (0: natural order)
+    ring = fit.ring_cameras((g[0] / 2, g[1] / 3, g[2] / 2), 0.8 * g[0], 0.9 * g[1], 8, device=dev)
+    tdirs = ray_directions(ring[0], 64, 64)
+    s_tgt = fast._init_state(ring[0].pos, tdirs, torch.ones(64 * 64, device=dev))
     cases = [
-        ("full 1024^2", s_bench, full, False, side, side),
-        ("full-noshadow 1024^2", s_bench, RenderConfig(width=side, height=side,
-                                                        enable_shadows=False), False, side, side),
-        ("lean 1024^2", s_bench, RenderConfig(width=side, height=side, **lean_kw), False, side,
-         side),
-        ("prox full pass 1024^2", s_prox, RenderConfig(width=side, height=side, **lean_kw), True,
-         side, 0),
-        ("prox coarse pass 256^2", s_coarse, rc_prox, True, side // cf, 0),
-        ("full 512^2 cli view", s_cli, RenderConfig(width=rd.width, height=rd.height), False,
-         rd.width, rd.width),
-        ("full 256^2 bench view", s_256, RenderConfig(width=256, height=256), False, 256, 256),
-        ("lean 256^2 coarse seed", s_coarse, rc_prox, False, side // cf, side // cf),
-        ("target view 64^2", s_tgt, RenderConfig(width=64, height=64, enable_shadows=False),
-         False, 64, 0),
-        (f"lean {cs.TRAIN_BATCH} train batch seed", s_batch,
-         RenderConfig(width=1, height=cs.TRAIN_BATCH, **lean_kw), False, 0, 0),
+        (f"full {SIDE}^2", s_bench, RenderConfig(width=SIDE, height=SIDE), False, SIDE),
+        (f"full, shadows off {SIDE}^2", s_bench,
+         RenderConfig(width=SIDE, height=SIDE, enable_shadows=False), False, SIDE),
+        (f"lean {SIDE}^2 (seed fine pass)", s_bench, RenderConfig(width=SIDE, height=SIDE, **lean),
+         False, SIDE),
+        (f"prox {SIDE}^2 full pass", s_prox, RenderConfig(width=SIDE, height=SIDE, **lean), True, 0),
+        (f"prox {SIDE // CF}^2 coarse pass", s_coarse, rc, True, 0),
+        (f"full {rd.width}^2 (CLI render view)", s_cli, RenderConfig(width=rd.width, height=rd.height),
+         False, rd.width),
+        ("full 256^2 (bench view)", s_256, RenderConfig(width=256, height=256), False, 256),
+        (f"lean {SIDE // CF}^2 (seed coarse pass)", s_coarse, rc, False, SIDE // CF),
+        ("materials 64^2 (a target view of the fit)", s_tgt,
+         RenderConfig(width=64, height=64, enable_shadows=False), False, 0),
     ]
-    for name, s, rcfg, prox, w, main_w in cases:
-        n = s.cell.shape[0]
-        o_launch, o_out = old_march(old["fused_march"], scene, s, rcfg, 0.0, prox)
-        o_launch()
-        torch.cuda.synchronize()
-        row = {"rays": n, "rays_differ": {}}
-        fns = {"old": o_launch}
-        if not args.skip_new:
-            libs = {"new": None} | {v: variants[("fused_march", v)][0] for v in MARCH_VARIANTS}
-            for v, lib in libs.items():
-                # the default build in both orders, the variants as the wrapper launches
-                orders = (("tiles", w), ("natural", 0)) if v == "new" else (
-                    ("tiles" if main_w else "natural", main_w),)
-                for order, iw in orders:
-                    key = f"{v}, {order}"
-                    launch, out = new_march(scene, s, rcfg, 0.0, prox, iw, lib=lib)
-                    launch()
-                    torch.cuda.synchronize()
-                    row["rays_differ"][key] = same_bits(o_out, out)
-                    fns[key] = launch
-        reps = 20 if n >= 2**18 else 100
-        row["ms"] = turns(fns, reps, 5)
-        # lane efficiency of one ray per thread, from the plain loop's per-ray trips
-        p_trips, s_trips = cs.march_trips(scene, s, rcfg, 0.0, prox)
-        row["lane_efficiency"] = {
-            order_name: cs.lane_efficiency(p_trips, s_trips, order)
-            for order_name, order in (("natural", cs.natural_order(n)),
-                                      ("8x4 tiles", cs.tile_order_for(n, w)),
-                                      ("16x2 tiles", cs.tile_order_for(n, w, 16)))}
-        row["trips"] = {"primary_mean": float(p_trips.float().mean()),
-                        "primary_max": int(p_trips.max()),
-                        "shadow_rays": int((s_trips > 0).sum()),
-                        "shadow_mean_on_them": float(s_trips[s_trips > 0].float().mean())
-                        if bool((s_trips > 0).any()) else 0.0,
-                        "shadow_max": int(s_trips.max())}
-        result["march"][name] = row
-        print(f"march {name}: {json.dumps(row)} | {card}")
+    for nb, (o_b, d_b) in pkg["batches"].items():
+        cases.append((f"lean {nb} rays (a train batch's seed)",
+                      fast._init_state(o_b, d_b, torch.ones(nb, device=dev)),
+                      RenderConfig(width=1, height=nb, **lean), False, 0))
+    return cases, cam, dirs
 
-    # window backward
-    ds = diff_scene_from_grid(grid, palette_arrays(pal)[0], dev, solid_density=cs.SOLID_DENSITY)
+
+def window_cases(pkg, scene, ds, cam, dirs, dev):
+    """[(name, window arguments, g_surf, g_tend, surf, t_end)]."""
+    from raytracing_test_tpu_torch.config import WorldConfig
+    from raytracing_test_tpu_torch.render import progressive
+    from raytracing_test_tpu_torch.render.diff import _pack_fields
+    from raytracing_test_tpu_torch.render.fast import sun_unit
+
+    fm, fw = pkg["fm"], pkg["fw"]
     field = _pack_fields(ds).detach().contiguous()
     shape3 = tuple(WorldConfig().grid_shape)
-    sun = fast.sun_unit((2.0, 1.0, 4.0))
-    seed = fm.seed_depth_fused(scene, cam.pos, dirs, (side, side))
-    wcases = [("1024^2 x 24 bench", cam.pos, dirs, seed)]
-    for nb, (o_b, d_b) in batches.items():
-        sd = progressive.guided_seeds(fm.render_rays_fused, scene, o_b, d_b, 3.0)
-        wcases.append((f"{nb} x 24 train batch", o_b, d_b, sd))
-    lib_w = old["fused_window"]
-    for name, o_w, d_w, sd in wcases:
-        _, _, cell, tmax, istep, absd = fw.window_inputs(shape3, o_w, d_w, sd)
+    sun = sun_unit((2.0, 1.0, 4.0))
+    rays = [(f"{SIDE}^2 x {cs.NUM_STEPS} (bench seeds)", cam.pos, dirs,
+             fm.seed_depth_fused(scene, cam.pos, dirs, (SIDE, SIDE)))]
+    for nb, (o_b, d_b) in pkg["batches"].items():
+        rays.append((f"{nb} x {cs.NUM_STEPS} (a train batch)", o_b, d_b,
+                     progressive.guided_seeds(fm.render_rays_fused, scene, o_b, d_b, 3.0)))
+    cases = []
+    for name, o, d, seed in rays:
+        _, _, cell, tmax, istep, absd = fw.window_inputs(shape3, o, d, seed)
         n = cell.shape[0]
         wargs = (field, cell, tmax, istep, absd, shape3, sun, cs.NUM_STEPS, False)
         surf, t_end, _, _ = fw._launch_fwd(*wargs)
-        fwd_ms = cs.cuda_ms(lambda: fw._launch_fwd(*wargs), 20, 3)
-        g_surf = torch.full((n, 3), 1.0 / (3 * n), device=dev)
-        g_tend = torch.zeros(n, device=dev)
-        ray_args = fw._ray_args(*wargs)
-        grad_o = torch.zeros_like(field)
-        gt_o = torch.empty((n, 3), device=dev)
-        ga_o = torch.empty((n, 3), device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        o_args = ray_args + [g_surf.data_ptr(), g_tend.data_ptr(), surf.data_ptr(),
-                             t_end.data_ptr(), grad_o.data_ptr(), gt_o.data_ptr(),
-                             ga_o.data_ptr(), stream]
+        cases.append((name, wargs, torch.full((n, 3), 1.0 / (3 * n), device=dev),
+                      torch.zeros(n, device=dev), surf, t_end))
+    return cases
 
-        def o_launch():
-            if lib_w.window_bwd_launch(*o_args) != 0:
-                raise RuntimeError("old window_bwd launch failed")
-        o_launch()
-        torch.cuda.synchronize()
-        row = {"rays": n, "grad_max_scaled": {}, "window_fwd_ms": fwd_ms}
-        fns = {"old": o_launch}
-        if not args.skip_new:
-            libs = {"default": None} | {v: variants[("fused_window", v)][0]
-                                        for v in WINDOW_VARIANTS}
-            for v, lib in libs.items():
-                fn, n_args, n_grad, n_gt, n_ga, keep = fw._bwd_args(
-                    *wargs, g_surf, g_tend, surf, t_end, lib=lib)
-                if fn(*n_args) != 0:
-                    raise RuntimeError(f"window_bwd {v} launch failed")
-                torch.cuda.synchronize()
-                row["grad_max_scaled"][v] = max(
-                    float((a - b).abs().max() / b.abs().max())
-                    for a, b in ((n_grad, grad_o), (n_gt, gt_o), (n_ga, ga_o)))
-                fns[v] = (lambda fn=fn, a=n_args: fn(*a))
-                fns[v].keep = (keep, n_grad)
-        reps = 20 if n >= 2**18 else 100
-        zero = torch.zeros_like(field)
-        row["zero_fill_ms"] = cs.cuda_ms(lambda: zero.zero_(), reps, 3)
-        row["ms"] = turns(fns, reps, 3)
-        row.update(cs.window_row_updates(cell, tmax, istep, absd, shape3))
-        result["window_bwd"][name] = row
-        print(f"window_bwd {name}: {json.dumps(row)} | {card}")
+
+def digest(out) -> str:
+    h = hashlib.sha256()
+    for k in sorted(out):
+        t = out[k]
+        t = t.to(torch.int32) if t.dtype == torch.bool else t
+        h.update(k.encode() + t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def check_window(fw, name, wargs, g_surf, g_tend, surf, t_end, card) -> float:
+    """window_bwd's gradients against window_plain's autograd; returns the
+    largest max-scaled difference and raises beyond cs.GRAD_TOL."""
+    grads = fw._launch_bwd(*wargs, g_surf, g_tend, surf, t_end)
+    leaves = [wargs[i].detach().clone().requires_grad_(True) for i in (0, 2, 4)]
+    plain = fw.window_plain(leaves[0], wargs[1], leaves[1], wargs[3], leaves[2], *wargs[5:])
+    ref = torch.autograd.grad(plain[:2], leaves, (g_surf, g_tend))
+    err = 0.0
+    for a, b in zip(grads, ref):
+        m = torch.isfinite(b)
+        if not torch.equal(torch.isfinite(a), m):
+            raise AssertionError(f"window_bwd {name}: gradients finite on other entries")
+        err = max(err, cs.max_scaled(a[m], b[m]))
+    print(f"  parity window_bwd {name}: gradients within {err:.3e} max-scaled of "
+          f"window_plain's autograd | {card}")
+    if err > cs.GRAD_TOL:
+        raise AssertionError(f"window_bwd {name}: gradients disagree beyond {cs.GRAD_TOL}")
+    return err
+
+
+def profiled_ms(calls) -> dict:
+    """{case: mean device ms of its kernel's launches}: every call of
+    ``calls`` ([(case, kind, thunk)]) run REPS times in one
+    torch.profiler session, each launch of kind's kernel attributed to its
+    case by time order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _, _, fn in calls:
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _, _, fn in calls:
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+    device = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name)
+                    for e in prof.events() if e.device_type == DeviceType.CUDA)
+    out = {}
+    for kind, kernel in KERNEL_NAMES.items():
+        us = [t for _, t, name in device if kernel in name]
+        cases = [c for c, k, _ in calls if k == kind]
+        if len(us) != REPS * len(cases):
+            raise AssertionError(f"{len(us)} launches of {kernel} profiled, expected "
+                                 f"{REPS} x {len(cases)}")
+        for j, case in enumerate(cases):
+            out[case] = sum(us[j * REPS:(j + 1) * REPS]) / REPS / 1e3
+    return out
+
+
+def worker(tree: Path, first: bool, out_path: Path) -> int:
+    sys.path.insert(0, str(tree))
+    import raytracing_test_tpu_torch
+
+    if not Path(raytracing_test_tpu_torch.__file__).resolve().is_relative_to(tree):
+        raise RuntimeError(f"the package was not imported from {tree}")
+    import inspect
+
+    from raytracing_test_tpu_torch.app import fit
+    from raytracing_test_tpu_torch.config import WorldConfig
+    from raytracing_test_tpu_torch.core.flatten import palette_arrays, scene_from_grid
+    from raytracing_test_tpu_torch.kernels import build
+    from raytracing_test_tpu_torch.kernels import fused_march as fm
+    from raytracing_test_tpu_torch.kernels import fused_window as fw
+    from raytracing_test_tpu_torch.render.diff import diff_scene_from_grid
+    from raytracing_test_tpu_torch.worldgen import terrain
+
+    dev = torch.device("cuda:0")
+    card = cs.card_line()
+    t0 = time.perf_counter()
+    build.build_all()
+    result = {"tree": str(tree), "build_s": time.perf_counter() - t0, "ms": {}, "wrapper_ms": {},
+              "zero_fill_ms": {}, "digest": {}, "grad_max_scaled": {}}
+    if first:
+        for name in ("fused_march", "fused_window"):
+            report = build.BUILD_INFO.get(name, {}).get("nvcc_report")
+            if report is None:
+                print(f"  nvcc {name}: built before this run, no report")
+            for line in (report or "").splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    print(f"  nvcc {name}: {line.strip()}")
+        occ = {}
+        for mod in (fm, fw):
+            if hasattr(mod, "occupancy"):
+                occ |= mod.occupancy()
+        result["blocks_per_sm"] = occ or "not exported"
+        print(f"  blocks per SM: {result['blocks_per_sm']} | {card}")
+
+    grid, pal = terrain.gen_world_grid(WorldConfig())
+    scene = scene_from_grid(grid, pal, dev)
+    g = WorldConfig().grid_shape
+    ring = fit.ring_cameras((g[0] / 2, g[1] / 3, g[2] / 2), 0.8 * g[0], 0.9 * g[1], 8, device=dev)
+    origins, rdirs, _ = fit.make_targets(scene, ring, 64)
+    rng = np.random.default_rng(0)
+    batches = {}
+    for nb in (cs.TRAIN_BATCH, cs.CLI_BATCH):
+        idx = torch.from_numpy(rng.integers(0, origins.shape[0], nb)).to(dev)
+        batches[nb] = (origins[idx].contiguous(), rdirs[idx].contiguous())
+    pkg = {"fm": fm, "fw": fw, "batches": batches}
+    tiles = "image_w" in inspect.signature(fm.fused_march_call).parameters
+    result["tiles"] = tiles
+    mcases, cam, dirs = march_cases(pkg, scene, dev)
+    ds = diff_scene_from_grid(grid, palette_arrays(pal)[0], dev, solid_density=cs.SOLID_DENSITY)
+    wcases = window_cases(pkg, scene, ds, cam, dirs, dev)
+
+    calls = []
+    for name, s, rcfg, prox, w in mcases:
+        kw = {"image_w": w} if tiles and w else {}
+        fn = (lambda s=s, rcfg=rcfg, prox=prox, kw=kw:
+              fm.fused_march_call(scene, s, rcfg, 0.0, prox=prox, **kw))
+        out = fn()
+        result["digest"][name] = digest(out)
+        if first:
+            cs.march_parity(f"  {name}", out, fm.fused_march_plain(scene, s, rcfg, 0.0, prox), card)
+        calls.append((name, "march", fn))
+    for name, wargs, g_surf, g_tend, surf, t_end in wcases:
+        if first:
+            result["grad_max_scaled"][name] = check_window(fw, name, wargs, g_surf, g_tend, surf,
+                                                           t_end, card)
+        calls.append((name, "window_bwd", lambda a=(*wargs, g_surf, g_tend, surf, t_end):
+                      fw._launch_bwd(*a)))
+        zero = torch.zeros_like(wargs[0])
+        result["zero_fill_ms"][name] = cs.cuda_ms(lambda: zero.zero_(), reps=REPS, warmup=3)
+    for name, _, fn in calls:
+        result["wrapper_ms"][name] = cs.cuda_ms(fn, reps=REPS, warmup=3)
+    result["ms"] = profiled_ms(calls)
+    out_path.write_text(json.dumps(result))
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="*", type=Path, help="directories that hold the package")
+    ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--first", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--out", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_ab: torch.cuda.is_available() is False; this script needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    if args.worker:
+        return worker(args.worker.resolve(), args.first, args.out)
+    if not args.trees:
+        ap.error("name at least one tree")
+    trees = [t.resolve() for t in args.trees]
+    for t in trees:
+        if not (t / "raytracing_test_tpu_torch" / "csrc").is_dir():
+            ap.error(f"{t} holds no raytracing_test_tpu_torch/csrc/")
+    card = cs.card_line()
+    print(f"device: {torch.cuda.get_device_name(0)} | {card} | torch {torch.__version__} "
+          f"cuda {torch.version.cuda}")
+    runs = {str(t): [] for t in trees}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, tree in enumerate(trees + trees[::-1]):
+            first = k < len(trees)
+            out = Path(tmp) / f"turn{k}.json"
+            print(f"turn {k}: {tree}", flush=True)
+            cmd = [sys.executable, str(Path(__file__).resolve()), "--worker", str(tree),
+                   "--out", str(out)] + (["--first"] if first else [])
+            subprocess.run(cmd, check=True, timeout=900)
+            runs[str(tree)].append(json.loads(out.read_text()))
+    base = str(trees[0])
+    cases = list(runs[base][0]["ms"])
+    print(f"kernel device ms per launch (torch.profiler, {REPS} calls a turn; both turns), "
+          f"change of the mean against {base} | {card}")
+    for case in cases:
+        b = np.mean([r["ms"][case] for r in runs[base]])
+        print(f"  {case}:")
+        for tree, rs in runs.items():
+            ms = [r["ms"][case] for r in rs]
+            z = rs[0]["zero_fill_ms"].get(case)
+            print(f"    {ms[0]:.4f} / {ms[1]:.4f} ({np.mean(ms) / b - 1:+.1%}); through the "
+                  f"wrapper {rs[0]['wrapper_ms'][case]:.4f} / {rs[1]['wrapper_ms'][case]:.4f}"
+                  + (f"; zero-fill {z:.4f}" if z is not None else "")
+                  + (f"; digest {rs[0]['digest'][case]}" if case in rs[0]["digest"] else "")
+                  + f": {tree}")
     print(card)
-    print(json.dumps(result))
+    print(json.dumps({"card": card, "runs": runs}))
     return 0
 
 

@@ -22,8 +22,8 @@
 // lanes of a warp that wait for its longest ray: a grazing ray or one
 // refracted through water takes many trips while its neighbours hit in a
 // few, and the sun-shadow march runs on some lanes only. The instructions
-// issued, not the bytes, set its time. The design (measured by kernel_ab.py
-// against the one-thread-per-ray original):
+// issued, not the bytes, set its time. The design (each step timed against
+// the one-thread-per-ray original on the card, PERF.md):
 //
 //  - Compile-time modes. The kernel is a template on (materials, shadows,
 //    prox); the lean and prox launches carry no material or shadow code
@@ -74,11 +74,8 @@ constexpr int kLiquid = 0x10;
 constexpr int kRefractive = 0x4;
 constexpr float kIorWater = 1.1f;
 constexpr float kEpsDir = 1e-12f;
-#ifndef RT_MARCH_TILE_W
-#define RT_MARCH_TILE_W 8  // kernel_ab.py also times 16 (16x2 tiles)
-#endif
 // one warp's pixels when the rays are an image: kTileW x kTileH
-constexpr int kTileW = RT_MARCH_TILE_W, kTileH = 32 / RT_MARCH_TILE_W;
+constexpr int kTileW = 8, kTileH = 32 / kTileW;
 
 struct Params {
   const uint8_t* grid_enc;  // [sx, sy, sz]
@@ -357,16 +354,14 @@ RT_DEV void march_ray(const Params& P, const int* flags_s, int i) {
 #ifdef __CUDACC__
 
 constexpr int kThreads = 128;
-// Launch bounds of the modes with materials: 6 blocks per SM let ptxas hold
-// the full kernel's state in 72 registers without a spill; with no bound it
-// chose 64 registers and a spill, measured slower (kernel_ab.py also times
-// a bound of 1).
-#ifndef RT_MARCH_MIN_BLOCKS_MAT
-#define RT_MARCH_MIN_BLOCKS_MAT 6
-#endif
+// Launch bounds: with no bound ptxas gave the full mode 64 registers and a
+// spill, which ran slower; bounded to 128-thread blocks it holds the state
+// in 72 registers without one. A minimum of 6 blocks per SM for the modes
+// with materials ran 1-2% faster than a minimum of 1 (PERF.md).
+constexpr int kMinBlocksMaterials = 6;
 
 template <bool kMaterials, bool kShadows, bool kProx>
-__global__ void __launch_bounds__(kThreads, kMaterials ? RT_MARCH_MIN_BLOCKS_MAT : 1)
+__global__ void __launch_bounds__(kThreads, kMaterials ? kMinBlocksMaterials : 1)
 fused_march_kernel(rt::Params P, const int32_t* __restrict__ flags, int n_flags) {
   __shared__ int flags_s[rt::kMaxMat];
   for (int j = threadIdx.x; j < rt::kMaxMat; j += blockDim.x) {

@@ -50,14 +50,14 @@
 // marches neighbouring pixels through neighbouring cells and its lanes on
 // one row sit side by side.
 //
-// The backward's design for this card (measured by kernel_ab.py against the
-// one-thread-per-ray original): the peers of a row are found as runs of
-// neighbouring lanes (one shuffle and one ballot) rather than with
-// __match_any_sync, and each run's row goes to memory as one float4
-// atomicAdd (sm_90) rather than four scalar ones. Loading the rows of the
-// next samples ahead of their use (their cells follow from the DDA alone)
-// was slower: its registers cost occupancy at 1024^2, and a training batch
-// of less than a wave gained nothing from it.
+// The backward's design for this card (each step timed against the
+// one-thread-per-ray original on the card, PERF.md): the peers of a row
+// are found as runs of neighbouring lanes (one shuffle and one ballot)
+// rather than with __match_any_sync, and each run's row goes to memory as
+// one float4 atomicAdd (sm_90) rather than four scalar ones. Loading the
+// rows of the next samples ahead of their use (their cells follow from the
+// DDA alone) was slower: its registers cost occupancy at 1024^2, and a
+// training batch of less than a wave gained nothing from it.
 //
 // Arithmetic: built with -fmad=false; every expression keeps the plain
 // version's operation order, so forward values agree to the last bits of
@@ -295,13 +295,10 @@ RT_DEV void backward_ray(const Params& P, int i, bool valid, const float* g_surf
 
 // window_bwd's block: 128 threads for a launch of at most one wave of them
 // (the training batches), 64 above (the 1024^2 frame): measured faster each
-// at its size (kernel_ab.py also times 128 above a wave)
-#ifndef RT_WINDOW_BWD_THREADS_LARGE
-#define RT_WINDOW_BWD_THREADS_LARGE 64
-#endif
-
+// at its size than the other
 constexpr int kThreads = 128;
-constexpr int kBwdSmall = 128, kBwdLarge = RT_WINDOW_BWD_THREADS_LARGE;
+constexpr int kBwdSmall = 128, kBwdLarge = 64;
+constexpr int kMaxDevices = 64;
 
 __global__ void __launch_bounds__(kThreads)
 window_fwd_kernel(rtw::Params P, float* surf, float* t_end, float* w_sum, float* t_exp) {
@@ -333,6 +330,24 @@ static rtw::Params make_params(const void* field, int sx, int sy, int sz, const 
   return P;
 }
 
+// Rays in one wave of window_bwd's small blocks on the current device (its
+// SMs x resident blocks x threads). It depends on the card alone, so each
+// device's value is computed at its first launch and kept.
+static int small_wave_rays() {
+  static int wave[kMaxDevices] = {};  // 0: not computed yet
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const bool kept = dev >= 0 && dev < kMaxDevices;
+  if (kept && wave[dev] > 0) return wave[dev];
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_bwd_kernel<kBwdSmall>,
+                                                kBwdSmall, 0);
+  const int rays = per_sm * sms * kBwdSmall;
+  if (kept) wave[dev] = rays;
+  return rays;
+}
+
 extern "C" int window_fwd_launch(
     const void* field, int sx, int sy, int sz,
     const void* cell, const void* tmax, const void* istep, const void* absd,
@@ -357,12 +372,7 @@ extern "C" int window_bwd_launch(
   if (n <= 0) return 0;
   const rtw::Params P = make_params(field, sx, sy, sz, cell, tmax, istep, absd, n, S, shading,
                                     sun_x, sun_y, sun_z);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_bwd_kernel<kBwdSmall>,
-                                                kBwdSmall, 0);
-  const bool large = n > per_sm * sms * kBwdSmall;  // more than one wave of small blocks
+  const bool large = n > small_wave_rays();  // more than one wave of small blocks
   const int threads = large ? kBwdLarge : kBwdSmall;
   auto* kernel = large ? window_bwd_kernel<kBwdLarge> : window_bwd_kernel<kBwdSmall>;
   kernel<<<(n + threads - 1) / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -37,20 +37,19 @@ _KMAX_MAT = 128
 TILE_W, TILE_H = 8, 4  # pixels of one warp's tile when the rays form an image
 
 
-def tile_order(width: int, height: int, tile_w: int = TILE_W) -> torch.Tensor:
+def tile_order(width: int, height: int) -> torch.Tensor:
     """The ray that each thread of a tiled launch marches, -1 for none: warp
-    w covers the tile_w x (32 / tile_w) pixel tile (w % tiles_x, w // tiles_x)
-    of the row-major ``width`` x ``height`` image, lane l its pixel
-    (l % tile_w, l // tile_w). Tiles past the image's right and bottom edges
+    w covers the TILE_W x TILE_H pixel tile (w % tiles_x, w // tiles_x) of
+    the row-major ``width`` x ``height`` image, lane l its pixel
+    (l % TILE_W, l // TILE_W). Tiles past the image's right and bottom edges
     hold no rays. The kernel computes the same map (csrc/fused_march.cu:
     ray_of)."""
-    tile_h = 32 // tile_w
-    tiles_x = -(-width // tile_w)
-    tiles_y = -(-height // tile_h)
+    tiles_x = -(-width // TILE_W)
+    tiles_y = -(-height // TILE_H)
     j = torch.arange(tiles_x * tiles_y * 32)
     w, lane = j // 32, j % 32
-    x = (w % tiles_x) * tile_w + lane % tile_w
-    y = (w // tiles_x) * tile_h + lane // tile_w
+    x = (w % tiles_x) * TILE_W + lane % TILE_W
+    y = (w // tiles_x) * TILE_H + lane // TILE_W
     return torch.where((x < width) & (y < height), y * width + x, torch.full_like(j, -1))
 
 
@@ -108,12 +107,12 @@ def occupancy() -> Dict[str, int]:
 
 
 def _launch_args(scene: Scene, s: _March, cfg: RenderConfig, time_s: float, prox: bool,
-                 image_w: int, lib=None):
+                 image_w: int):
     """(launch function, its arguments, outputs, inputs kept alive) for one
-    launch on checked inputs; ``lib``: another build of the same source."""
+    launch on checked inputs."""
     from . import build
 
-    lib = lib or build.library("fused_march")
+    lib = build.library("fused_march")
     dev = s.cell.device
     N = s.cell.shape[0]
     i32, f32 = torch.int32, torch.float32

@@ -123,14 +123,13 @@ def _raise_on(lib, err: int, name: str):
         raise RuntimeError(f"{name} kernel launch failed: {lib.kernel_error_string(err).decode()}")
 
 
-def _fwd_args(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading, lib=None):
+def _fwd_args(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading):
     """(launch function, its arguments, (surf, t_end, w_sum, t_exp)) for one
-    window_fwd launch on checked inputs; ``lib``: another build of the same
-    source."""
+    window_fwd launch on checked inputs."""
     from . import build
 
     args = _ray_args(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading)
-    lib = lib or build.library("fused_window")
+    lib = build.library("fused_window")
     N, dev = cell.shape[0], cell.device
     surf = torch.empty((N, 3), dtype=torch.float32, device=dev)
     t_end, w_sum, t_exp = (torch.empty(N, dtype=torch.float32, device=dev) for _ in range(3))
@@ -150,15 +149,14 @@ def _launch_fwd(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading):
 
 
 def _bwd_args(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading,
-              g_surf, g_tend, surf, t_end, lib=None):
+              g_surf, g_tend, surf, t_end):
     """(launch function, its arguments, field gradient [V, 4], tmax cotangent
     [N, 3], abs_delta cotangent [N, 3], kept inputs) for one window_bwd
-    launch on checked inputs, the gradient field zero-filled; ``lib`` another
-    build of the same source."""
+    launch on checked inputs, the gradient field zero-filled."""
     from . import build
 
     args = _ray_args(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading)
-    lib = lib or build.library("fused_window")
+    lib = build.library("fused_window")
     N, dev = cell.shape[0], cell.device
     _check(g_surf, "g_surf", torch.float32, (N, 3), dev)
     _check(surf, "surf", torch.float32, (N, 3), dev)
