@@ -40,9 +40,11 @@ Phases (any failure raises, and the script exits non-zero):
                 b. window parity: window_fwd/window_bwd against window_plain
                    on the same seeds, forward with sky off, sky on, and
                    shading with shadow_steps 6; gradients of mean(rgb) in
-                   density, albedo, origin and dirs. Contract: forward
-                   |diff| <= 1e-5 on >= 99% of pixels, gradients within 1e-5
-                   max-scaled (atomic ordering is the only difference);
+                   density, albedo, origin and dirs; the same at both train
+                   batches in part e (the forward's split kernel). Contract:
+                   forward exact on every pixel (run H of PR 5 had
+                   max_abs_err 0), gradients within 1e-5 max-scaled (atomic
+                   ordering is the only difference);
                 c. train: five make_train_step_fused steps on one fixed batch
                    of 16384 rays from make_targets: finite losses, the fifth
                    below the first, one window_fwd and one window_bwd per step;
@@ -56,34 +58,45 @@ Phases (any failure raises, and the script exits non-zero):
                    its gradient row updates, at 1024^2 and at the train
                    batches (16384 and the CLI fit's 8192 rays), where its
                    gradients are held to window_plain's autograd (1e-5
-                   max-scaled: each block size the wrapper picks). The
-                   kernels' launch counts are reset just before c and read
-                   just after d.
+                   max-scaled: each block size the wrapper picks);
+                   window_fwd's device time back to back (torch.profiler)
+                   and inside a train step, after the seed march and the
+                   preamble. The kernels' launch counts are reset just
+                   before c and read just after d.
   8. bricks  -- the brick engine (kernels/brick_kernels.py, csrc/brick_march.cu)
                 on the default world at 1024x1024 from the bench camera:
-                a. kernel parity: brick_fine and brick_advance against
-                   brick_fine_plain and brick_advance_plain on the states of
-                   the first two rounds of the primary and the shadow march;
-                   integer fields equal, float fields equal to the bit;
-                b. frame parity: render_rays_bricks_pallas on the kernels
-                   against render_rays_fused on the fused kernel and against
-                   the plain brick path (render/bricks.py) on the card, in
-                   four configurations: full, lean, the water view at 1.2
-                   (reflected and refracted rays required) and the CLI's view
-                   at 512x512. Contract: assert_images_close, and mat equal
-                   on >= 99.9% of rays, cell and steps on >= 99.9% of the
-                   rays that hit (a sky ray ends where an exit rule first
-                   fires, which depends on the air boxes it crossed);
+                a. kernel parity: brick_fine and brick_advance (in 8x4
+                   warp tiles and in natural order) against brick_fine_plain
+                   and brick_advance_plain on the states of the first two
+                   rounds of the primary and the shadow march; integer
+                   fields equal, float fields equal to the bit;
+                b. frame parity: the brick frame on the kernels (the hooks
+                   of render_rays_bricks_pallas, brick_advance in place and
+                   tiled, each of its launches also held to the bit to
+                   brick_advance_plain and to a natural-order launch on a
+                   copy) against render_rays_fused on the fused kernel and
+                   against the plain brick path (render/bricks.py) on the
+                   card, in four configurations: full, lean, the water view
+                   at 1.2 (reflected and refracted rays required) and the
+                   CLI's view at 512x512. Contract: assert_images_close, and
+                   mat equal on >= 99.9% of rays, cell and steps on >= 99.9%
+                   of the rays that hit (a sky ray ends where an exit rule
+                   first fires, which depends on the air boxes it crossed);
                 c. cli: ``render --mode bricks-pallas`` at its defaults,
                    in-process; both launch counts are reset just before and
                    must rise;
-                d. timing: per launch (CUDA events on the first round's
-                   advance input and the second round's fine input, kernel
-                   and plain version), per frame (rounds, glue passes and
-                   launches, primary and shadow; the per-lane loop caps
-                   checked), the brick frame against the fused frame and the
-                   plain brick frame, and one torch.profiler pass over the
-                   brick frame;
+                d. timing: every brick_advance launch of the 1024^2 bench
+                   frame and of the CLI's 512^2 frame (lanes live on entry,
+                   lanes that advance, advancing iterations, lane efficiency
+                   in natural order and in 8x4 tiles, device time from
+                   torch.profiler, the launch's own bound) and the frame's
+                   lost time, the sum of (ms - bound); per launch (the first
+                   round's advance input on fresh copies, device time; the
+                   second round's fine input, CUDA events; kernel and plain
+                   version), per frame (rounds, glue passes and launches,
+                   primary and shadow; the per-lane loop caps checked), the
+                   brick frame against the fused frame and the plain brick
+                   frame, and one torch.profiler pass over the brick frame;
                 e. bounds of those two launches from their data, and the
                    same two launches (parity, time, bound) at the CLI brick
                    frame's 512^2 view.
@@ -129,14 +142,16 @@ Phases (any failure raises, and the script exits non-zero):
 After phase 9 the kernels are ordered by the time they lose on the main
 paths: launches x (ms - bound) at the shape each launch has (512^2 frames,
 64^2 target views, the train batches' seeds and window pairs, the 512^2
-brick frame's launches, both prox passes).
+brick frame's launches, both prox passes); for brick_advance the 512^2
+frame's own launches, each with its time and bound (8d).
 
 The line before the last holds the card's name and power limit, the one
 before it the per-kernel JSON (time, launches, plain time and the bound:
 the larger of the bytes the kernel must move over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, the H100 SXM data-sheet peaks; the brick
-kernels' times and bounds are per launch, on the inputs named in 8d); the
-last line is the ok JSON.
+kernels' times and bounds are per launch, on the inputs named in 8d: for
+brick_advance the first round's, with every lane live); the last line is
+the ok JSON.
 """
 
 from __future__ import annotations
@@ -157,6 +172,7 @@ BENCH_DIR = (0.55, -0.4, 0.55)
 WATER_TIME = 1.2
 ATOL, MAX_BAD_FRAC, MIN_EQ_FRAC = 1e-5, 0.01, 0.999
 GRAD_TOL = 1e-5  # max-scaled, kernel vs plain version
+WINDOW_FWD_ERR = 0.0  # window forward vs window_plain, max_abs_err of run H (PR 5): exact
 # prox pipeline against the exact-seed guided render (the reference's own
 # contract, tests/test_fused_window.py:608,622): rgb, and gradients max-scaled
 PROX_RGB_TOL, PROX_GRAD_TOL = 2e-3, 5e-3
@@ -369,12 +385,12 @@ def window_row_updates(cell, tmax, istep, abs_delta, shape3) -> dict:
     return out
 
 
-def window_grads(render, ds, cam, dirs, seed, **kw):
+def window_grads(render, ds, origin, dirs, seed, **kw):
     """rgb and the gradients of mean(rgb) in density, albedo, origin and dirs."""
     from raytracing_test_tpu_torch.render.diff import DiffScene
 
     leaves = [t.detach().clone().requires_grad_(True)
-              for t in (ds.density, ds.albedo, cam.pos, dirs)]
+              for t in (ds.density, ds.albedo, origin, dirs)]
     rgb = render(DiffScene(leaves[0], leaves[1]), leaves[2], leaves[3],
                  num_steps=NUM_STEPS, start_t=seed, **kw)
     rgb.mean().backward()
@@ -382,30 +398,34 @@ def window_grads(render, ds, cam, dirs, seed, **kw):
     return [rgb.detach()] + [t.grad for t in leaves]
 
 
-def window_parity(fw, ds, cam, dirs, seed):
-    """Kernels vs plain version, forward and gradients, three configurations.
-    Returns (forward max_abs_err, gradient max_abs_err)."""
+def window_parity(fw, ds, origin, dirs, seed, label):
+    """Kernels vs plain version on ``label``'s rays, forward and gradients,
+    three configurations. The forward must be exact (its max_abs_err in
+    run H of PR 5, WINDOW_FWD_ERR) on every pixel. Returns (forward
+    max_abs_err, gradient max_abs_err)."""
     fwd_err = grad_err = 0.0
     for kw in (dict(sky=False), dict(sky=True), dict(sky=True, shading=True, shadow_steps=6)):
-        k = window_grads(fw.render_window_fused, ds, cam, dirs, seed, **kw)
-        p = window_grads(fw.render_window_plain, ds, cam, dirs, seed, **kw)
+        k = window_grads(fw.render_window_fused, ds, origin, dirs, seed, **kw)
+        p = window_grads(fw.render_window_plain, ds, origin, dirs, seed, **kw)
         d = (k[0] - p[0]).abs().max(dim=1).values
         bad = float((d > ATOL).float().mean())
-        if not torch.isfinite(k[0]).all() or bad > MAX_BAD_FRAC:
-            raise AssertionError(f"window {kw}: forward disagrees (bad fraction {bad})")
+        if not torch.isfinite(k[0]).all() or bad > 0 or float(d.max()) > WINDOW_FWD_ERR:
+            raise AssertionError(f"window {label} {kw}: forward disagrees (bad fraction {bad}, "
+                                 f"max_abs_err {float(d.max()):.3e})")
         fwd_err = max(fwd_err, float(d.max()))
         scaled = {}
         for name, a, b in zip(("density", "albedo", "origin", "dirs"), k[1:], p[1:]):
             m = torch.isfinite(b)
             if not torch.equal(torch.isfinite(a), m):
-                raise AssertionError(f"window {kw}: {name} gradient finite on other entries")
+                raise AssertionError(f"window {label} {kw}: {name} gradient finite on other entries")
             err = (a[m] - b[m]).abs().max()
             scaled[name] = float(err / b[m].abs().max())
             grad_err = max(grad_err, float(err))
-        print(f"parity window {kw}: forward max_abs_err {float(d.max()):.3e} bad_frac {bad:.6f}; "
+        print(f"parity window {label} {kw}: forward max_abs_err {float(d.max()):.3e} bad_frac {bad:.6f}; "
               "gradients max-scaled " + " ".join(f"{k_} {v:.3e}" for k_, v in scaled.items()))
         if max(scaled.values()) > GRAD_TOL:
-            raise AssertionError(f"window {kw}: gradients disagree beyond {GRAD_TOL} max-scaled")
+            raise AssertionError(f"window {label} {kw}: gradients disagree beyond {GRAD_TOL} "
+                                 "max-scaled")
     return fwd_err, grad_err
 
 
@@ -601,17 +621,20 @@ def window_bwd_diagnosis(name, card, fw, wargs, g_surf, g_tend, surf, t_end):
     del plain, ref, leaves
     reps = 20 if n >= 2**18 else 100
     f_ms = cuda_ms(lambda: launch(fwd_fn, fwd_args), reps=reps, warmup=3)
+    f_dev = launch_device_ms(lambda: launch(fwd_fn, fwd_args), "window_fwd", reps)[0]
     k_ms = cuda_ms(lambda: launch(fn, args), reps=reps, warmup=3)
     z_ms = cuda_ms(lambda: grad.zero_(), reps=reps, warmup=3)
     upd = window_row_updates(*wargs[1:6])
     fb, bb, rows = window_bounds(wargs)
-    print(f"timing window pair {name}: window_fwd {f_ms:.4f} ms (bound {fb[0]:.4f}, {fb[1]}); "
+    print(f"timing window pair {name}: window_fwd {f_ms:.4f} ms ({f_dev:.4f} ms of device time "
+          f"back to back; bound {fb[0]:.4f}, {fb[1]}); "
           f"window_bwd kernel {k_ms:.4f} ms + zero-fill of the [V, 4] gradient {z_ms:.4f} ms "
           f"(bound of both {bb[0]:.4f}, {bb[1]}); occupancy {fw.occupancy()}; {rows} rows "
           f"touched, {upd['samples_in_grid']} in-grid samples, {upd['row_updates_per_warp']} "
           f"row updates (one per warp, step and row), {upd['row_updates_per_block128']} if "
           f"summed per block of 128 | {card}")
-    return {"window_fwd": (f_ms, fb[0]), "window_bwd": (k_ms + z_ms, bb[0]), "grad_err": grad_err}
+    return {"window_fwd": (f_ms, fb[0]), "window_bwd": (k_ms + z_ms, bb[0]), "grad_err": grad_err,
+            "window_fwd_device": f_dev}
 
 
 def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
@@ -640,7 +663,7 @@ def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
         raise AssertionError("seed pass: expected two lean march launches and surface hits")
 
     # b. window parity on the same seeds
-    fwd_err, grad_err = window_parity(fw, ds, cam, dirs, seed)
+    fwd_err, grad_err = window_parity(fw, ds, cam.pos, dirs, seed, f"{side}^2")
 
     # c. five train steps on one fixed batch; the main path's counts start here
     fm.LAUNCHES = fw.LAUNCHES_FWD = fw.LAUNCHES_BWD = 0
@@ -713,6 +736,8 @@ def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
         idx = torch.from_numpy(rng.integers(0, origins.shape[0], nb)).to(dev)
         o_b, d_b = origins[idx].contiguous(), rdirs[idx].contiguous()
         sd = progressive.guided_seeds(fm.render_rays_fused, scene, o_b, d_b, 3.0)
+        errs = window_parity(fw, ds, o_b, d_b, sd, f"{nb} rays (a train batch)")
+        fwd_err, grad_err = max(fwd_err, errs[0]), max(grad_err, errs[1])
         _, _, bc, bt, bi, ba = fw.window_inputs(shape3, o_b, d_b, sd)
         bargs = (field, bc, bt, bi, ba, shape3, sun, NUM_STEPS, False)
         b_surf, b_tend, _, _ = fw._launch_fwd(*bargs)
@@ -721,6 +746,15 @@ def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
             torch.full((nb, 3), 1.0 / (3 * nb), device=dev), torch.zeros(nb, device=dev),
             b_surf, b_tend)
         grad_err = max(grad_err, out["batches"][nb]["grad_err"])
+
+    # window_fwd inside a train step, after the seed march and the preamble,
+    # against its back-to-back launches above
+    for nb in (TRAIN_BATCH, CLI_BATCH):
+        idx = torch.from_numpy(rng.integers(0, origins.shape[0], nb)).to(dev)
+        b = (origins[idx], rdirs[idx], targets[idx])
+        in_step = launch_device_ms(lambda: step_fn(*b), "window_fwd", reps=5)[0]
+        print(f"window_fwd {nb} x {NUM_STEPS}: {in_step:.4f} ms of device time inside a train "
+              f"step, {out['batches'][nb]['window_fwd_device']:.4f} back to back | {card}")
 
     def step(render):
         d = ds.density.detach().requires_grad_(True)
@@ -746,7 +780,10 @@ def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
           f"backward {plain_bwd_ms:.3f} ms, loss+backward {plain_step_ms:.3f} ms "
           f"({n / plain_step_ms * 1e3:.4e} rays/s); peak memory of a step {peak} bytes | {card}")
 
-    profile_step(lambda: step(fw.render_window_fused), card)
+    per_name = profile_step(lambda: step(fw.render_window_fused), card)
+    in_step = [t for k, v in per_name.items() if "window_fwd" in k for t in v]
+    print(f"window_fwd {side}^2 x {NUM_STEPS}: {sum(in_step) / len(in_step) / 1e3:.4f} ms of device "
+          f"time inside loss+backward, {bench_bwd['window_fwd_device']:.4f} back to back | {card}")
 
     # bounds from this run's windows (window_bounds)
     fb, bb, rows = window_bounds(wargs)
@@ -762,10 +799,11 @@ def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
     return out
 
 
-def state_parity(name, k, p, evt_k=None, evt_p=None) -> float:
+def state_parity(name, k, p, evt_k=None, evt_p=None, verbose=True) -> float:
     """Kernel vs plain output states: integer fields equal, float fields
-    equal to the bit (and evt equal). Prints any difference and raises on
-    it; returns the largest float difference."""
+    equal to the bit (and evt equal). Prints the comparison (with
+    ``verbose``, else only a difference) and raises on a difference;
+    returns the largest float difference."""
     err, bad = 0.0, []
     for f in STATE_FIELDS:
         a, b = getattr(k, f), getattr(p, f)
@@ -780,8 +818,9 @@ def state_parity(name, k, p, evt_k=None, evt_p=None) -> float:
     if evt_k is not None and not torch.equal(evt_k, evt_p):
         bad.append(f"evt on {int((evt_k != evt_p).sum())} lanes")
     extra = "" if evt_k is None else f", {int(evt_k.sum())} events"
-    print(f"parity {name}: {int((~p.done).sum())} lanes left{extra}, max_abs_err {err:.3e}, "
-          + ("all fields equal" if not bad else "DIFFER: " + "; ".join(bad)))
+    if verbose or bad:
+        print(f"parity {name}: {int((~p.done).sum())} lanes left{extra}, max_abs_err {err:.3e}, "
+              + ("all fields equal" if not bad else "DIFFER: " + "; ".join(bad)))
     if bad:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return err
@@ -815,19 +854,45 @@ def brick_kernel_parity(scene, s, rcfg, o_full):
             pf, pe = bk.brick_fine_plain(scene, st, blin, luts, budget)
             err = max(err, state_parity(f"brick_fine {march} round {r}", kf, pf, ke, pe))
             after_fine = bricks._fine_loop(scene, st, blin, rcfg, budget, shadow, 0.0)
-            ka = bk.brick_advance(scene, table, after_fine, budget)
             pa = bk.brick_advance_plain(scene, table, after_fine, budget)
-            err = max(err, state_parity(f"brick_advance {march} round {r}", ka, pa))
+            for order, w in (("8x4 warp tiles", rcfg.width), ("natural order", 0)):
+                ka = bk.brick_advance(scene, table, after_fine, budget, image_w=w)
+                err = max(err, state_parity(f"brick_advance {march} round {r}, {order}", ka, pa))
             inputs[(march, r)] = (st, blin, after_fine)
             st = pa
     torch.cuda.synchronize()
     return err, inputs
 
 
+def checked_advance(name, image_w, card):
+    """brick_march's brick hook as the main path has it (advance_loop, in
+    place, 8x4 warp tiles over the ``image_w``-wide image), with every launch
+    held to the bit to brick_advance_plain on its input and to a
+    natural-order launch on a copy of it. The hook's ``errs`` collects each
+    launch's largest float difference."""
+    from raytracing_test_tpu_torch.kernels import brick_kernels as bk
+
+    def hook(sc, table, s, budget):
+        p = bk.brick_advance_plain(sc, table, s, budget)
+        natural = bk.brick_advance(sc, table, s, budget)
+        out = bk.advance_loop(sc, table, s, budget, image_w=image_w)
+        k = len(hook.errs)
+        hook.errs.append(max(
+            state_parity(f"brick_advance {name} launch {k}, 8x4 warp tiles", out, p, verbose=False),
+            state_parity(f"brick_advance {name} launch {k}, natural order", natural, p,
+                         verbose=False)))
+        return out
+
+    hook.errs = []
+    return hook
+
+
 def brick_frame_parity(name, scene, pos, dirn, rcfg, time_s, card):
     """(b) The brick frame on the kernels against the fused frame and the
-    plain brick frame on the card. Returns ({reference: max_abs_err}, aux,
-    ray directions)."""
+    plain brick frame on the card: render_rays_bricks_pallas's hooks, with
+    every brick_advance launch held to its plain version in both work
+    orders (checked_advance). Returns ({reference: max_abs_err}, aux, ray
+    directions)."""
     from raytracing_test_tpu_torch.kernels import brick_kernels as bk
     from raytracing_test_tpu_torch.kernels import fused_march as fm
     from raytracing_test_tpu_torch.render import bricks
@@ -836,8 +901,13 @@ def brick_frame_parity(name, scene, pos, dirn, rcfg, time_s, card):
     dev = scene.device
     cam = Camera(pos=torch.tensor(pos, device=dev), dir=torch.tensor(dirn, device=dev))
     dirs = ray_directions(cam, rcfg.width, rcfg.height)
-    cb, ab = bk.render_rays_bricks_pallas(scene, cam.pos, dirs, rcfg, time_s=time_s)
+    adv = checked_advance(name, rcfg.width, card)
+    cb, ab = bricks.render_rays_bricks(scene, cam.pos, dirs, rcfg, time_s=time_s,
+                                       fine_loop=bk.fine_loop, brick_loop=adv)
     torch.cuda.synchronize()
+    print(f"parity bricks {name}: every brick_advance launch of the frame ({len(adv.errs)}) "
+          f"equal to brick_advance_plain in 8x4 warp tiles and in natural order, max_abs_err "
+          f"{max(adv.errs):.3e} | {card}")
     if not (torch.isfinite(cb).all() and cb.shape == (rcfg.width * rcfg.height, 3)):
         raise AssertionError(f"bricks {name}: frame not finite or of the wrong shape")
     errs = {}
@@ -852,7 +922,7 @@ def brick_frame_parity(name, scene, pos, dirn, rcfg, time_s, card):
         frac = {k: float(v.float().mean()) for k, v in eq.items()}
         frac_hit = {k: float(v[hit].float().mean()) if bool(hit.any()) else 1.0
                     for k, v in eq.items()}
-        errs[ref] = float(d.max())
+        errs[ref] = max(float(d.max()), max(adv.errs))
         print(f"parity bricks {name} vs {ref}: max_abs_err {d.max():.3e} bad_frac {bad:.6f}; "
               "equal on all rays " + " ".join(f"{k} {v:.6f}" for k, v in frac.items())
               + "; on hit rays " + " ".join(f"{k} {v:.6f}" for k, v in frac_hit.items())
@@ -878,10 +948,9 @@ def counted_brick_frame(scene, pos, dirn, rcfg):
           "adv": [0, 0], "fine": [0, 0]}
 
     def adv(sc, table, s, budget):
-        out = bk.brick_advance(sc, table, s, budget)
         st["adv"][int(table is sc.brick_dist_shadow)] += 1
         st["adv_iter"] = max(st["adv_iter"], int(advance_iterations(sc, table, s, budget).max()) + 1)
-        return out
+        return bk.advance_loop(sc, table, s, budget, image_w=rcfg.width)
 
     def fine(sc, s, blin, cfg, budget, shadow, t):
         n0 = bk.LAUNCHES_FINE
@@ -925,11 +994,116 @@ def advance_iterations(scene, table, s, budget):
     return count
 
 
+def warp_efficiency(work, order) -> float:
+    """Sum of ``work`` over 32 x the sum over warps of the warp's largest
+    work, warps of 32 threads formed by ``order`` (the ray of each thread,
+    -1: none)."""
+    valid = (order >= 0).to(work.device)
+    w = torch.where(valid, work[order.clamp(min=0).to(work.device)], 0).reshape(-1, 32)
+    lanes = 32 * float(w.max(dim=1).values.to(torch.int64).sum())
+    return float(w.to(torch.int64).sum()) / lanes if lanes else 1.0
+
+
+def advance_launch_stats(scene, table, s, budget, width) -> dict:
+    """What one brick_advance launch on ``s`` has to do: lanes live on entry
+    and lanes that advance, the advancing iterations (total; mean over the
+    live lanes; mean over warps of the warp's largest count, in natural
+    order), lane efficiency in natural order and in 8x4 pixel tiles of the
+    ``width``-wide image, and the launch's bound: the full state of each live
+    lane, 1 byte for each done lane and the table, and 20 operations per
+    advancing iteration."""
+    it = advance_iterations(scene, table, s, budget)
+    n = it.shape[0]
+    live = int((~s.done).sum())
+    nat, til = natural_order(n), tile_order_for(n, width)
+    pad = torch.cat([it, it.new_zeros(-n % 32)]).reshape(-1, 32)
+    total = int(it.to(torch.int64).sum())
+    nbytes = live * (BRICK_STATE_IN + BRICK_STATE_OUT) + (n - live) + table.numel()
+    return {"n": n, "live": live, "advancing": int((it > 0).sum()), "iterations": total,
+            "mean": total / max(live, 1), "warp_max": float(pad.max(dim=1).values.float().mean()),
+            "eff_natural": warp_efficiency(it, nat), "eff_tiles": warp_efficiency(it, til),
+            "bound": bound(nbytes, total * BRICK_ADVANCE_OPS_PER_ITER), "bytes": nbytes}
+
+
+def launch_device_ms(fn, kernel: str, reps: int) -> list:
+    """Device ms of each launch of the kernel whose name holds ``kernel`` in
+    one call of ``fn``, in launch order, each the mean over ``reps`` calls
+    (torch.profiler, after one warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [t for _, t in sorted((e.time_range.start, e.time_range.elapsed_us())
+                               for e in prof.events()
+                               if e.device_type == DeviceType.CUDA and kernel in e.name)]
+    if not us or len(us) % reps:
+        raise AssertionError(f"{len(us)} launches of {kernel} profiled in {reps} calls")
+    per = len(us) // reps
+    return [sum(us[r * per + i] for r in range(reps)) / reps / 1e3 for i in range(per)]
+
+
+def advance_frame(scene, pos, dirn, rcfg, card, label, reps=3):
+    """Every brick_advance launch of one brick frame on the main path's
+    hooks: per launch its work (advance_launch_stats, from the input state
+    of a frame whose hook counts before it launches), its device time
+    (launch_device_ms over ``reps`` frames) and its bound; then the frame's
+    lost time, the sum over launches of (ms - bound). Returns the sums
+    {"launches", "ms", "bound", "lost"}."""
+    from raytracing_test_tpu_torch.kernels import brick_kernels as bk
+    from raytracing_test_tpu_torch.render import bricks
+    from raytracing_test_tpu_torch.render.camera import Camera, ray_directions
+
+    dev = scene.device
+    cam = Camera(pos=torch.tensor(pos, device=dev), dir=torch.tensor(dirn, device=dev))
+    dirs = ray_directions(cam, rcfg.width, rcfg.height)
+    stats = []
+
+    def adv(sc, table, s, budget):
+        st = advance_launch_stats(sc, table, s, budget, rcfg.width)
+        st["march"] = "shadow" if table is sc.brick_dist_shadow else "primary"
+        stats.append(st)
+        return bk.advance_loop(sc, table, s, budget, image_w=rcfg.width)
+
+    bricks.render_rays_bricks(scene, cam.pos, dirs, rcfg, fine_loop=bk.fine_loop, brick_loop=adv)
+    ms = launch_device_ms(lambda: bk.render_rays_bricks_pallas(scene, cam.pos, dirs, rcfg,
+                                                               image_w=rcfg.width),
+                          "brick_advance", reps)
+    if len(ms) != len(stats):
+        raise AssertionError(f"{len(ms)} brick_advance launches profiled, {len(stats)} counted")
+    print(f"brick_advance, every launch of the {label} brick frame (device ms: torch.profiler, "
+          f"mean of {reps} frames) | {card}")
+    for i, (st, t) in enumerate(zip(stats, ms)):
+        b, by = st["bound"]
+        print(f"  {i:2d} {st['march']:7s}: {st['live']:7d} live of {st['n']}, {st['advancing']:7d} "
+              f"advance; iterations {st['iterations']} (mean {st['mean']:.2f} a live lane, warps' "
+              f"largest {st['warp_max']:.2f} on average); lane efficiency natural "
+              f"{st['eff_natural']:.3f}, 8x4 tiles {st['eff_tiles']:.3f}; {t:.4f} ms, bound "
+              f"{b:.4f} ({by}), share {b / t:.3f}")
+    sums = {"launches": len(ms), "ms": sum(ms), "bound": sum(st["bound"][0] for st in stats)}
+    sums["lost"] = sums["ms"] - sums["bound"]
+    first = stats[0]
+    r1 = bound(first["n"] * (BRICK_STATE_IN + BRICK_STATE_OUT) + scene.brick_dist.numel(),
+               first["iterations"] * BRICK_ADVANCE_OPS_PER_ITER)[0]
+    print(f"brick_advance {label} frame: {sums['launches']} launches, {sums['ms']:.4f} ms, bound "
+          f"{sums['bound']:.4f} ms, lost {sums['lost']:.4f} ms (sum of ms - bound); round-1 launch "
+          f"{ms[0]:.4f} ms against the all-lanes bound {r1:.4f} ({r1 / ms[0]:.3f}); launches x "
+          f"round 1's (ms - all-lanes bound) would say {len(ms) * (ms[0] - r1):.4f} ms | {card}")
+    return sums
+
+
 def brick_launches(scene, inputs, rcfg, card, label):
     """brick_advance on the first round's and brick_fine on the second
-    round's primary states (``inputs`` of brick_kernel_parity), each as raw
-    launches on fixed inputs (no wrapper on the host between them), with
-    their bounds from the data: {kernel: (ms per launch, bound)}."""
+    round's primary states (``inputs`` of brick_kernel_parity), with their
+    bounds from the data: {kernel: (ms per launch, bound)}. brick_advance
+    works in place, so each of its raw launches (8x4 warp tiles, as the
+    frame launches it) gets a fresh copy of the state and its device time is
+    read by torch.profiler; brick_fine is timed on raw launches of fixed
+    inputs with CUDA events (no wrapper on the host between them)."""
     from raytracing_test_tpu_torch.kernels import brick_kernels as bk
     from raytracing_test_tpu_torch.kernels import build
 
@@ -938,12 +1112,17 @@ def brick_launches(scene, inputs, rcfg, card, label):
     s_fine, blin_fine, _ = inputs[("primary", 2)]
     n = s_adv.cell.shape[0]
     luts = bk._prop_luts(scene, False, rcfg.enable_materials)
-    adv_args, *keep_a = bk._advance_args(scene, scene.brick_dist, s_adv, rcfg.max_steps)
     fine_args, *keep_f = bk._fine_args(scene, s_fine, blin_fine, luts, rcfg.max_steps)
-    for fn, args in ((lib.brick_advance_launch, adv_args), (lib.brick_fine_launch, fine_args)):
-        if fn(*args) != 0:
-            raise AssertionError("a timing launch of a brick kernel failed")
-    adv_ms = cuda_ms(lambda: lib.brick_advance_launch(*adv_args), reps=20, warmup=3)
+
+    def advance_fresh():
+        args, _ = bk._advance_args(scene, scene.brick_dist, bk.writable(s_adv), rcfg.max_steps,
+                                   rcfg.width)
+        if lib.brick_advance_launch(*args) != 0:
+            raise AssertionError("a timing launch of brick_advance failed")
+
+    if lib.brick_fine_launch(*fine_args) != 0:
+        raise AssertionError("a timing launch of brick_fine failed")
+    adv_ms = launch_device_ms(advance_fresh, "brick_advance", reps=20)[0]
     fine_ms = cuda_ms(lambda: lib.brick_fine_launch(*fine_args), reps=20, warmup=3)
     iters = int(advance_iterations(scene, scene.brick_dist, s_adv, rcfg.max_steps).sum())
     adv_bytes = n * (BRICK_STATE_IN + BRICK_STATE_OUT) + scene.brick_dist.numel()
@@ -962,7 +1141,7 @@ def brick_launches(scene, inputs, rcfg, card, label):
         print(f"timing {name} per launch, {label} ({work}): kernel {k_ms:.4f} ms; bound "
               f"{nbytes} bytes -> {b[0]:.4f} ms ({b[1]}), kernel at {b[0] / k_ms:.3f} of it "
               f"| {card}")
-    del keep_a, keep_f
+    del keep_f
     return {"brick_advance": (adv_ms, adv_bound), "brick_fine": (fine_ms, fine_bound)}
 
 
@@ -1023,6 +1202,11 @@ def bricks_phase(dev, card, side, scene, o_full, wscene, wpos, wdir, cli):
           f"brick_advance launches primary {st['adv'][0]} shadow {st['adv'][1]}; brick_fine "
           f"launches primary {st['fine'][0]} shadow {st['fine'][1]}; caps (max seen, cap): "
           + ", ".join(f"{k} {v[0]} of {v[1]}" for k, v in st["caps"].items()) + f" | {card}")
+    d = cli.build_parser().parse_args(["render"])
+    cfg_cli = RenderConfig(width=d.width, height=d.height)
+    cli_view = (CameraConfig().pos, yaw_pitch_dir(d.yaw, d.pitch))
+    advance_frame(scene, BENCH_POS, BENCH_DIR, full, card, f"{side}^2 bench")
+    adv_cli = advance_frame(scene, *cli_view, cfg_cli, card, f"{d.width}^2 CLI")
     at_side = brick_launches(scene, inputs, full, card, f"{side}^2 bench view")
     adv_ms, adv_bound = at_side["brick_advance"]
     fine_ms, fine_bound = at_side["brick_fine"]
@@ -1050,15 +1234,13 @@ def bricks_phase(dev, card, side, scene, o_full, wscene, wpos, wdir, cli):
               + f" | {card}")
     per_name = profile_step(lambda: bk.render_image_bricks_pallas(scene, cam, full, 0.0), card,
                             steps=3, label=f"brick frame full {side}x{side}")
-    for k in ("brick_advance_kernel", "brick_fine_kernel"):
+    for k in ("brick_advance", "brick_fine_kernel"):
         v = [t for name, ts in per_name.items() if k in name for t in ts]
         print(f"  {k}: {len(v) / 3:.1f} launches and {sum(v) / 3e3:.4f} ms of device time per "
               f"frame, {sum(v) / max(len(v), 1) / 1e3:.4f} ms per launch | {card}")
 
     # e. the same two launches at the CLI brick frame's shape (its 512^2 view)
-    d = cli.build_parser().parse_args(["render"])
-    cfg_cli = RenderConfig(width=d.width, height=d.height)
-    s_cli = march_state(scene, CameraConfig().pos, yaw_pitch_dir(d.yaw, d.pitch), d.width)
+    s_cli = march_state(scene, *cli_view, d.width)
     _, inputs_cli = brick_kernel_parity(scene, s_cli, cfg_cli,
                                         fm.fused_march_call(scene, s_cli, cfg_cli, 0.0))
     at_cli = brick_launches(scene, inputs_cli, cfg_cli, card, f"{d.width}^2 render view")
@@ -1071,7 +1253,7 @@ def bricks_phase(dev, card, side, scene, o_full, wscene, wpos, wdir, cli):
         dict(name="brick_fine", replaces="raytracing_test_tpu/kernels/brick_kernels.py:235",
              launches=launches["brick_fine"], ms=fine_ms, plain_ms=fine_plain_ms,
              bound_ms=fine_bound[0], bound_by=fine_bound[1], **common),
-    ], {k: (v[0], v[1][0]) for k, v in at_cli.items()}, launches
+    ], {k: (v[0], v[1][0]) for k, v in at_cli.items()}, launches, adv_cli
 
 
 def march_parity(name, k, p, card) -> float:
@@ -1416,8 +1598,8 @@ def run(dev: torch.device, side: int) -> int:
     launches = serve_launches + train["march_launches"]
 
     # 8. the brick engine
-    brick_kernels, bricks_cli, brick_counts = bricks_phase(dev, card, side, scene, o_full, wscene,
-                                                           wpos, wdir, cli)
+    brick_kernels, bricks_cli, brick_counts, adv_cli = bricks_phase(
+        dev, card, side, scene, o_full, wscene, wpos, wdir, cli)
 
     kernels = [{
         "name": "fused_march",
@@ -1472,8 +1654,9 @@ def run(dev: torch.device, side: int) -> int:
          w16["window_bwd"]),
         (f"window_bwd, {CLI_BATCH} x {NUM_STEPS} (zero-fill included)", train["steps"][CLI_BATCH],
          w8["window_bwd"]),
-        ("brick_advance, 512^2 brick frame (round-1 launch)", brick_counts["brick_advance"],
-         bricks_cli["brick_advance"]),
+        ("brick_advance, 512^2 brick frame (each launch's own ms and bound, averaged)",
+         brick_counts["brick_advance"],
+         (adv_cli["ms"] / adv_cli["launches"], adv_cli["bound"] / adv_cli["launches"])),
         ("brick_fine, 512^2 brick frame (round-2 launch)", brick_counts["brick_fine"],
          bricks_cli["brick_fine"]),
         (f"fused_march prox, {side // 4}^2 coarse pass", 1, prox_passes["coarse"]),

@@ -1,5 +1,5 @@
-"""Old-against-new timing of the port's march and window-backward kernels on
-one CUDA card, each tree of the port in a process of its own.
+"""Old-against-new timing of the port's march, window and brick_advance
+kernels on one CUDA card, each tree of the port in a process of its own.
 
     mkdir -p _ab/old && git archive <commit> raytracing_test_tpu_torch | tar -x -C _ab/old
     python3 kernel_ab.py _ab/old .
@@ -9,8 +9,8 @@ package of PR 4 or later (a checkout, or an unpacked ``git archive`` of
 one; ``_ab/`` is gitignored). A tree's process imports that tree's
 package, builds its kernels from that tree's sources into its own
 ``_build/``, and drives the same inputs through the wrappers that every
-such tree has (``fused_march_call``, ``_launch_bwd``), at the shapes the
-main paths launch:
+such tree has (``fused_march_call``, ``_launch_fwd``, ``_launch_bwd``,
+``brick_advance``), at the shapes the main paths launch:
 
   march       -- from the bench camera: 1024^2 full, full without shadows,
                  lean (the seed's fine pass), both prox passes (1024^2 and
@@ -21,9 +21,18 @@ main paths launch:
                  exact seed passes get the image width where the tree's
                  ``fused_march_call`` takes ``image_w``, as its main path
                  passes it;
+  window_fwd,
   window_bwd  -- 1024^2 x 24 on the bench seeds, and 16384 x 24 and
                  8192 x 24 on train batches (rays of the fit's ring views,
-                 seeded by the lean march).
+                 seeded by the lean march);
+  brick_advance -- the input of the first and of the third round's
+                 brick_advance launch of the primary march (the plain brick
+                 path's states) of the 1024^2 bench frame and of the CLI's
+                 512^2 frame, launched as each tree's brick path launches
+                 it (in 8x4 warp tiles where its ``brick_advance`` takes
+                 ``image_w``), and the same inputs in natural order. A tree
+                 whose brick_advance works in place gets a fresh copy of the
+                 state in each call; only the kernel's device time counts.
 
 The trees run in turns, forward then back (A, B, ..., B, A), so every tree
 is timed before and after every other. In each turn a kernel's time is the
@@ -33,8 +42,10 @@ kernel: it is timed apart, with CUDA events), beside the wrapper's own
 time per call (CUDA events, host work included).
 
 In its first turn each tree is held to its own plain versions: every march
-output equal to the bit (fused_march_plain), window_bwd's gradients within
-1e-5 max-scaled of window_plain's autograd. It prints a digest of each
+output and every brick_advance output equal to the bit (fused_march_plain,
+brick_advance_plain), window_fwd's outputs exact against window_plain,
+window_bwd's gradients within 1e-5 max-scaled of window_plain's autograd.
+It prints a digest of each
 launch's outputs (equal digests: equal bits across trees), its nvcc
 register report and, where its wrappers export them, its blocks per SM.
 The line before the last holds the card's name and power limit; the last
@@ -59,7 +70,9 @@ import chip_smoke as cs
 
 SIDE, CF = cs.FULL, 4  # frame side, coarse factor of the seed
 REPS = 20  # calls of each wrapper per shape and turn
-KERNEL_NAMES = {"march": "fused_march_kernel", "window_bwd": "window_bwd_kernel"}
+KERNEL_NAMES = {"march": "fused_march_kernel", "window_fwd": "window_fwd",
+                "window_bwd": "window_bwd_kernel", "brick_advance": "brick_advance"}
+ROUNDS = (1, 3)  # the brick_advance launches timed: their round in the primary march
 
 
 def march_cases(pkg, scene, dev):
@@ -136,6 +149,32 @@ def window_cases(pkg, scene, ds, cam, dirs, dev):
     return cases
 
 
+def brick_cases(scene, dev):
+    """[(name, state, table, budget, image width)]: the primary march's
+    brick_advance input in the rounds of ROUNDS, from the plain brick path,
+    at the 1024^2 bench view and the CLI's 512^2 view."""
+    from raytracing_test_tpu_torch.app import cli
+    from raytracing_test_tpu_torch.config import CameraConfig, RenderConfig
+    from raytracing_test_tpu_torch.render import bricks, fast
+    from raytracing_test_tpu_torch.render.camera import yaw_pitch_dir
+
+    rd = cli.build_parser().parse_args(["render"])
+    cases = []
+    for label, pos, dirn, side in (("bench", cs.BENCH_POS, cs.BENCH_DIR, SIDE),
+                                   ("CLI", CameraConfig().pos, yaw_pitch_dir(rd.yaw, rd.pitch),
+                                    rd.width)):
+        rcfg = RenderConfig(width=side, height=side)
+        s, _, _ = fast.start_cell(scene, cs.march_state(scene, pos, dirn, side))
+        for r in range(1, max(ROUNDS) + 1):
+            blin = bricks.occupied_brick(scene, scene.brick_dist, s)
+            s = bricks._fine_loop(scene, s, blin, rcfg, rcfg.max_steps, False, 0.0)
+            if r in ROUNDS:
+                cases.append((f"{side}^2 {label} frame, round {r} ({int((~s.done).sum())} of "
+                              f"{s.cell.shape[0]} lanes live)", s, rcfg.max_steps, side))
+            s = bricks._brick_loop(scene, scene.brick_dist, s, rcfg.max_steps)
+    return cases
+
+
 def digest(out) -> str:
     h = hashlib.sha256()
     for k in sorted(out):
@@ -143,6 +182,19 @@ def digest(out) -> str:
         t = t.to(torch.int32) if t.dtype == torch.bool else t
         h.update(k.encode() + t.contiguous().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def check_window_fwd(fw, name, wargs, card) -> float:
+    """window_fwd's outputs against window_plain's; returns the largest
+    difference and raises unless it is 0."""
+    with torch.no_grad():
+        got = fw._launch_fwd(*wargs)
+        want = fw.window_plain(*wargs)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    print(f"  parity window_fwd {name}: max_abs_err {err:.3e} against window_plain | {card}")
+    if err > 0:
+        raise AssertionError(f"window_fwd {name}: differs from window_plain")
+    return err
 
 
 def check_window(fw, name, wargs, g_surf, g_tend, surf, t_end, card) -> float:
@@ -207,6 +259,7 @@ def worker(tree: Path, first: bool, out_path: Path) -> int:
     from raytracing_test_tpu_torch.app import fit
     from raytracing_test_tpu_torch.config import WorldConfig
     from raytracing_test_tpu_torch.core.flatten import palette_arrays, scene_from_grid
+    from raytracing_test_tpu_torch.kernels import brick_kernels as bk
     from raytracing_test_tpu_torch.kernels import build
     from raytracing_test_tpu_torch.kernels import fused_march as fm
     from raytracing_test_tpu_torch.kernels import fused_window as fw
@@ -220,7 +273,7 @@ def worker(tree: Path, first: bool, out_path: Path) -> int:
     result = {"tree": str(tree), "build_s": time.perf_counter() - t0, "ms": {}, "wrapper_ms": {},
               "zero_fill_ms": {}, "digest": {}, "grad_max_scaled": {}}
     if first:
-        for name in ("fused_march", "fused_window"):
+        for name in ("fused_march", "fused_window", "brick_march"):
             report = build.BUILD_INFO.get(name, {}).get("nvcc_report")
             if report is None:
                 print(f"  nvcc {name}: built before this run, no report")
@@ -228,7 +281,7 @@ def worker(tree: Path, first: bool, out_path: Path) -> int:
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     print(f"  nvcc {name}: {line.strip()}")
         occ = {}
-        for mod in (fm, fw):
+        for mod in (fm, fw, bk):
             if hasattr(mod, "occupancy"):
                 occ |= mod.occupancy()
         result["blocks_per_sm"] = occ or "not exported"
@@ -246,7 +299,8 @@ def worker(tree: Path, first: bool, out_path: Path) -> int:
         batches[nb] = (origins[idx].contiguous(), rdirs[idx].contiguous())
     pkg = {"fm": fm, "fw": fw, "batches": batches}
     tiles = "image_w" in inspect.signature(fm.fused_march_call).parameters
-    result["tiles"] = tiles
+    brick_tiles = "image_w" in inspect.signature(bk.brick_advance).parameters
+    result["tiles"], result["brick_tiles"] = tiles, brick_tiles
     mcases, cam, dirs = march_cases(pkg, scene, dev)
     ds = diff_scene_from_grid(grid, palette_arrays(pal)[0], dev, solid_density=cs.SOLID_DENSITY)
     wcases = window_cases(pkg, scene, ds, cam, dirs, dev)
@@ -263,12 +317,28 @@ def worker(tree: Path, first: bool, out_path: Path) -> int:
         calls.append((name, "march", fn))
     for name, wargs, g_surf, g_tend, surf, t_end in wcases:
         if first:
+            check_window_fwd(fw, name, wargs, card)
             result["grad_max_scaled"][name] = check_window(fw, name, wargs, g_surf, g_tend, surf,
                                                            t_end, card)
+        calls.append((f"window_fwd {name}", "window_fwd", lambda a=wargs: fw._launch_fwd(*a)))
+        result["digest"][f"window_fwd {name}"] = digest(dict(zip(
+            ("surf", "t_end", "w_sum", "t_exp"), fw._launch_fwd(*wargs))))
         calls.append((name, "window_bwd", lambda a=(*wargs, g_surf, g_tend, surf, t_end):
                       fw._launch_bwd(*a)))
         zero = torch.zeros_like(wargs[0])
         result["zero_fill_ms"][name] = cs.cuda_ms(lambda: zero.zero_(), reps=REPS, warmup=3)
+    for name, s, budget, side in brick_cases(scene, dev):
+        want = bk.brick_advance_plain(scene, scene.brick_dist, s, budget)
+        for order, w in (("8x4 warp tiles", side if brick_tiles else 0), ("natural order", 0)):
+            case = f"brick_advance {name}, {order}"
+            kw = {"image_w": w} if w else {}
+            fn = (lambda s=s, budget=budget, kw=kw:
+                  bk.brick_advance(scene, scene.brick_dist, s, budget, **kw))
+            out = fn()
+            result["digest"][case] = digest({f: getattr(out, f) for f in cs.STATE_FIELDS})
+            if first:
+                cs.state_parity(f"  {case}", out, want)
+            calls.append((case, "brick_advance", fn))
     for name, _, fn in calls:
         result["wrapper_ms"][name] = cs.cuda_ms(fn, reps=REPS, warmup=3)
     result["ms"] = profiled_ms(calls)

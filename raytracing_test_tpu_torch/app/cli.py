@@ -21,8 +21,10 @@ that a command line of the JAX package runs unchanged). ``fit`` runs
     python -m raytracing_test_tpu_torch.app.cli fit --engine "" --guided --steps 20
 
 ``edit`` and ``probe``, and the render modes ``fast``, ``reference``,
-``progressive``, ``pallas``, ``spatial`` and ``handoff``, are not ported yet
-(ROADMAP.md).
+``progressive``, ``spatial`` and ``handoff``, are not ported yet
+(ROADMAP.md). ``pallas`` is rejected: the JAX CLI offers it, but its
+``WorldSession.render`` has no renderer for it and raises
+``unknown render mode 'pallas'``.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ from ..worldgen import terrain
 from . import picking
 
 RENDER_MODES = ("fused", "bricks", "bricks-pallas")
-UNPORTED_MODES = ("fast", "reference", "progressive", "pallas", "spatial", "handoff")
+UNPORTED_MODES = ("fast", "reference", "progressive", "spatial", "handoff")
+NO_RENDERER_MODES = ("pallas",)  # offered by the JAX CLI, rendered by nothing there
 
 
 def write_png(img: np.ndarray, path: str) -> None:
@@ -187,6 +190,10 @@ def _render_mode(value: str) -> str:
     if value in UNPORTED_MODES:
         raise argparse.ArgumentTypeError(
             f"render mode {value!r} is not ported yet; see ROADMAP.md, 'Modules to port'")
+    if value in NO_RENDERER_MODES:
+        raise argparse.ArgumentTypeError(
+            f"render mode {value!r} has no renderer: the reference does not render this mode "
+            f"either (its WorldSession.render raises for it)")
     raise argparse.ArgumentTypeError(
         f"unknown render mode {value!r} (choose from {', '.join(RENDER_MODES)})")
 

@@ -29,11 +29,25 @@
 // What bounds it on this card: dependent loads per ray, a 131 KB distance
 // table and the 64-byte voxel rows of the bricks a ray meets, all resident
 // in L2 (brick_mat is 8.4 MB for the default world), plus warp divergence
-// between rays that settle in one iteration and rays that take many. Each
-// launch reads and writes the march state once (about 100 bytes per ray);
-// the host loop around the two kernels (one launch each per round, a sync
-// per round and per glue pass) costs more than the kernels at 1024^2.
-// Fusing the rounds and the glue into one launch is later work.
+// between rays that settle in one iteration and rays that take many. The
+// host loop around the two kernels (one launch each per round, a sync per
+// round and per glue pass) costs more than the kernels at 1024^2. Fusing
+// the rounds and the glue into one launch is later work.
+//
+// brick_advance's design for this card (each step timed against the
+// kernel it replaced on the card, PERF.md):
+//  - In place. It updates the march state it is given (the wrapper hands
+//    it a writable one): a lane that is done reads its done byte and
+//    returns; a lane waiting in an occupied brick reads its cell and step
+//    signs (25 bytes) and returns; a lane that neither moves nor changes
+//    writes nothing. Launched once per round over all N lanes, most of which
+//    are done or waiting after the first round, it moves a few bytes for
+//    each of those instead of the whole state (65 bytes in, 41 out).
+//  - Warp tiles. When the lanes are a row-major image (the wrapper passes
+//    its width), warp w advances the 8x4 pixel tile w (rt::ray_of, as the
+//    fused march): neighbouring pixels cross boxes of alike size.
+//  - The distance table is read through L1, the unified L1 / shared memory
+//    set to its largest L1 (the kernel uses no shared memory).
 //
 // Arithmetic: built with -fmad=false and IEEE division, every operation
 // rounds once, in the order of the PyTorch version, so DDA near-ties
@@ -119,14 +133,28 @@ RT_DEV int brick_lin(const Grid& G, int wx, int wy, int wz) {
   return ((wx >> sh) * G.by + (wy >> sh)) * G.bz + (wz >> sh);
 }
 
+// Byte lin of the distance table: through the read-only cache from global
+// memory, or (kShared) from a block's copy in shared memory.
+template <bool kShared>
+RT_DEV int table_at(const uint8_t* dist, int lin) {
+  if constexpr (kShared) {
+    return (int)dist[lin];
+  } else {
+    return (int)RT_LDG(dist + lin);
+  }
+}
+
 // The brick phase of one lane (render/bricks.py:_brick_step, repeated): runs
-// until an iteration in which the lane does not advance.
-RT_DEV void advance_lane(const uint8_t* dist, const Grid& G, int y_max, int budget, Lane& r) {
+// until an iteration in which the lane does not advance. Returns the number
+// of iterations in which it advanced.
+template <bool kShared = false>
+RT_DEV int advance_lane(const uint8_t* dist, const Grid& G, int y_max, int budget, Lane& r) {
   const int S[3] = {G.sx, G.sy, G.sz};
-  for (int it = 0; it < kBrickCap; ++it) {
+  int it = 0;
+  for (; it < kBrickCap; ++it) {
     const int w[3] = {r.c[0] & 1023, r.c[1] & 1023, r.c[2] & 1023};
     const bool in_w = w[0] < G.sx && w[1] < G.sy && w[2] < G.sz;
-    const int d = in_w ? (int)RT_LDG(dist + brick_lin(G, w[0], w[1], w[2])) : 1;
+    const int d = in_w ? table_at<kShared>(dist, brick_lin(G, w[0], w[1], w[2])) : 1;
     const bool occupied = in_w && d == 0;
 
     // exit rules (moving away outside the window, sky above y_max)
@@ -156,6 +184,48 @@ RT_DEV void advance_lane(const uint8_t* dist, const Grid& G, int y_max, int budg
     }
     rt::aabb_advance(r, lo, hi);
     if (r.steps >= budget) r.done = true;  // budget freeze
+  }
+  return it;
+}
+
+// Whether advance_lane leaves a live lane as it is: its first iteration
+// finds it in an occupied brick, leaving by no exit rule. That needs the
+// cell and the step signs alone.
+template <bool kShared = false>
+RT_DEV bool stays(const State& S, const uint8_t* dist, const Grid& G, int y_max, int i) {
+  const int S3[3] = {G.sx, G.sy, G.sz};
+  int c[3];
+  float s[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    c[k] = S.cell[3 * i + k];
+    s[k] = S.step[3 * i + k];
+  }
+  const int w[3] = {c[0] & 1023, c[1] & 1023, c[2] & 1023};
+  if (!(w[0] < G.sx && w[1] < G.sy && w[2] < G.sz)) return false;
+  if (table_at<kShared>(dist, brick_lin(G, w[0], w[1], w[2])) != 0) return false;
+  bool away = false;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    away = away || (c[k] >= S3[k] && s[k] > 0.0f) || (c[k] < 0 && s[k] < 0.0f);
+  }
+  const bool sky = c[1] > y_max && s[1] > 0.0f;
+  return !away && !sky;
+}
+
+// brick_advance on lane i of a writable march state (S and O name the same
+// tensors): a done lane reads its done byte and returns, a lane that stays
+// reads its cell and step signs, and a lane that neither moves nor changes
+// writes nothing.
+template <bool kShared = false>
+RT_DEV void advance_in_place(const State& S, const Out& O, const uint8_t* dist, const Grid& G,
+                             int y_max, int budget, int i) {
+  if (S.done[i] || stays<kShared>(S, dist, G, y_max, i)) return;
+  Lane r;
+  load(S, i, r);
+  const int mat = r.mat;
+  if (advance_lane<kShared>(dist, G, y_max, budget, r) > 0 || r.mat != mat || r.done) {
+    store(O, i, r);
   }
 }
 
@@ -206,16 +276,43 @@ RT_DEV bool fine_lane(const uint8_t* bmat, const uint32_t hit[4], const uint32_t
 #ifdef __CUDACC__
 
 constexpr int kThreads = 128;
+constexpr int kMaxDevices = 64;
+// brick_advance's preferred share of the unified L1 / shared memory as
+// shared memory, in percent (cudaFuncAttributePreferredSharedMemoryCarveout):
+// 0 asks for the largest L1, where the distance table is read
+constexpr int kAdvanceCarveout = 0;
+// Stage the distance table in shared memory when it fits: one persistent
+// block of kStageThreads per SM
+constexpr bool kStageTable = false;
+constexpr int kStageThreads = 1024;
+constexpr int kMaxStagedTable = 227 * 1024;
 
 __global__ void __launch_bounds__(kThreads)
 brick_advance_kernel(rb::State S, rb::Out O, const uint8_t* __restrict__ dist, rb::Grid G,
-                     int y_max, int budget, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  rb::Lane r;
-  rb::load(S, i, r);
-  rb::advance_lane(dist, G, y_max, budget, r);
-  rb::store(O, i, r);
+                     int y_max, int budget, int n, int width) {
+  const int i = rt::ray_of(n, width, blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= 0) rb::advance_in_place(S, O, dist, G, y_max, budget, i);
+}
+
+// brick_advance with the table_bytes-byte distance table (16-byte aligned)
+// copied into shared memory first; the blocks walk the work items.
+__global__ void __launch_bounds__(kStageThreads)
+brick_advance_staged_kernel(rb::State S, rb::Out O, const uint8_t* __restrict__ dist,
+                            int table_bytes, rb::Grid G, int y_max, int budget, int n,
+                            int width) {
+  extern __shared__ uint4 table_words[];
+  auto* table = reinterpret_cast<uint8_t*>(table_words);
+  const int words = table_bytes >> 4;
+  for (int j = threadIdx.x; j < words; j += blockDim.x) {
+    table_words[j] = __ldg(reinterpret_cast<const uint4*>(dist) + j);
+  }
+  for (int j = (words << 4) + threadIdx.x; j < table_bytes; j += blockDim.x) table[j] = dist[j];
+  __syncthreads();
+  const int items = rt::work_items(n, width);
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < items; j += gridDim.x * blockDim.x) {
+    const int i = rt::ray_of(n, width, j);
+    if (i >= 0) rb::advance_in_place<true>(S, O, table, G, y_max, budget, i);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -278,20 +375,69 @@ rb::Grid grid_of(int sx, int sy, int sz, int shift) {
 
 }  // namespace
 
+// brick_advance's kernel attributes, set once per device (at its first
+// launch there), and the device's SM count; returns an error or 0.
+static int advance_setup(int* sms) {
+  static int count[kMaxDevices] = {};  // 0: not set up yet
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const bool kept = dev >= 0 && dev < kMaxDevices;
+  if (kept && count[dev] > 0) {
+    *sms = count[dev];
+    return 0;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      brick_advance_kernel, cudaFuncAttributePreferredSharedMemoryCarveout, kAdvanceCarveout);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(brick_advance_staged_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxStagedTable);
+  }
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (kept && err == cudaSuccess) count[dev] = *sms;
+  return static_cast<int>(err);
+}
+
+// brick_advance in place on the march state (cell, tmax, mat, done, lt, la
+// and steps are read and written; step and abs_delta only read). width > 0:
+// the n lanes are a row-major image that wide, advanced in 8x4 warp tiles.
 extern "C" int brick_advance_launch(
     const void* dist, int sx, int sy, int sz, int shift, int y_max, int budget,
-    const void* cell, const void* tmax, const void* step, const void* abs_delta,
-    const void* mat, const void* done, const void* lt, const void* la, const void* steps,
-    int n,
-    void* o_mat, void* o_cell, void* o_tmax, void* o_lt, void* o_la, void* o_steps,
-    void* o_done, void* stream) {
+    void* cell, void* tmax, const void* step, const void* abs_delta,
+    void* mat, void* done, void* lt, void* la, void* steps,
+    int n, int width, void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  brick_advance_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      state_of(cell, tmax, step, abs_delta, mat, done, lt, la, steps),
-      out_of(o_mat, o_cell, o_tmax, o_lt, o_la, o_steps, o_done),
-      static_cast<const uint8_t*>(dist), grid_of(sx, sy, sz, shift), y_max, budget, n);
+  if (width < 0 || (width > 0 && n % width != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  const int err = advance_setup(&sms);
+  if (err != 0) return err;
+  const rb::State S = state_of(cell, tmax, step, abs_delta, mat, done, lt, la, steps);
+  const rb::Out O = out_of(mat, cell, tmax, lt, la, steps, done);
+  const rb::Grid G = grid_of(sx, sy, sz, shift);
+  const auto* table = static_cast<const uint8_t*>(dist);
+  const int table_bytes = (sx >> shift) * G.by * G.bz;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (kStageTable && table_bytes <= kMaxStagedTable &&
+      (reinterpret_cast<uintptr_t>(dist) & 15) == 0) {
+    brick_advance_staged_kernel<<<sms, kStageThreads, table_bytes, st>>>(
+        S, O, table, table_bytes, G, y_max, budget, n, width);
+  } else {
+    const int blocks = (rt::work_items(n, width) + kThreads - 1) / kThreads;
+    brick_advance_kernel<<<blocks, kThreads, 0, st>>>(S, O, table, G, y_max, budget, n, width);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks per SM of brick_advance (which 0) or brick_fine (which 1), and
+// (threads != null) the block size.
+extern "C" int brick_blocks_per_sm(int which, int* threads) {
+  int blocks = -1;
+  if (which == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, brick_advance_kernel, kThreads, 0);
+  } else {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, brick_fine_kernel, kThreads, 0);
+  }
+  if (threads) *threads = kThreads;
+  return blocks;
 }
 
 extern "C" int brick_fine_launch(

@@ -59,6 +59,19 @@
 // DDA alone) was slower: its registers cost occupancy at 1024^2, and a
 // training batch of less than a wave gained nothing from it.
 //
+// The forward's design for this card (each step timed against the kernel
+// it replaced on the card, PERF.md): a sample's cell follows from the DDA
+// alone, and no row load feeds the next cell, so the rows of a ray's
+// samples can all be in flight at once. With the window's length a
+// compile-time constant (kFixedS, the training path's 24 steps; other
+// lengths run the generic loop) the loop unrolls and the loads issue ahead
+// of their use. A launch of less than one wave of rays (a training batch:
+// 64 or 128 blocks on 132 SMs) splits each ray over kSplit neighbouring
+// lanes: lane k walks the DDA to its share of the samples, loads those rows
+// and takes their exponentials at once, and the lanes then composite in
+// sample order, each passing its running sums to the next with shuffles, so
+// every sum rounds as in the one-lane loop.
+//
 // Arithmetic: built with -fmad=false; every expression keeps the plain
 // version's operation order, so forward values agree to the last bits of
 // expf.
@@ -125,6 +138,21 @@ RT_DEV void load_ray(const Params& P, int i, Ray& r) {
   r.t_cur = 0.0f;
 }
 
+// The advance of one crossing, without its sample. Returns the exit axis.
+RT_DEV int advance(Ray& r) {
+  const int ax = argmin_axis(r.t[0], r.t[1], r.t[2]);
+  const float tn = sel3(r.t, ax);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (k == ax) {
+      r.c[k] += r.is[k];
+      r.t[k] = r.t[k] + r.a[k];
+    }
+  }
+  r.t_cur = tn;
+  return ax;
+}
+
 // One crossing: the sample's segment length, its field row (zero outside the
 // grid), then the advance. Returns the exit axis.
 RT_DEV int step(const Params& P, Ray& r, float& dt, float4& f, size_t& lin, bool& inside) {
@@ -151,35 +179,90 @@ RT_DEV int step(const Params& P, Ray& r, float& dt, float4& f, size_t& lin, bool
   return ax;
 }
 
+// The forward's running sums, in sample order.
+struct Acc {
+  float T, acc0, acc1, acc2, ws, te, tc;
+};
+
+RT_DEV Acc acc_start() { return Acc{1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}; }
+
+// One sample into the running sums: e = exp(-sigma dt), the sample's row f
+// and the face intensity of its entry axis.
+RT_DEV void composite(const Params& P, float e, float dt, const float4& f, float inten, Acc& a) {
+  const float w = a.T * (1.0f - e);
+  const float wi = P.shading ? w * inten : w;
+  a.acc0 = a.acc0 + wi * f.y;
+  a.acc1 = a.acc1 + wi * f.z;
+  a.acc2 = a.acc2 + wi * f.w;
+  a.ws = a.ws + w;
+  a.te = a.te + w * (a.tc + 0.5f * dt);
+  a.tc = a.tc + dt;
+  a.T = a.T * e;
+}
+
+RT_DEV void write_out(const Acc& a, int i, float* surf, float* t_end, float* w_sum,
+                      float* t_exp) {
+  surf[3 * i + 0] = a.acc0;
+  surf[3 * i + 1] = a.acc1;
+  surf[3 * i + 2] = a.acc2;
+  t_end[i] = a.T;
+  w_sum[i] = a.ws;
+  t_exp[i] = a.te;
+}
+
+// One ray's window on one lane: kS > 0 samples (unrolled, the loads issue
+// ahead of their use), or kS = 0 for P.S samples.
+template <int kS = 0>
 RT_DEV void forward_ray(const Params& P, int i, float* surf, float* t_end, float* w_sum,
                         float* t_exp) {
   Ray r;
   load_ray(P, i, r);
-  float T = 1.0f, acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, ws = 0.0f, te = 0.0f, tc = 0.0f;
-  for (int s = 0; s < P.S; ++s) {
+  Acc a = acc_start();
+  const int S = kS > 0 ? kS : P.S;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
     const int entry = r.entry;
     float dt;
     float4 f;
     size_t lin;
     bool inside;
     r.entry = step(P, r, dt, f, lin, inside);
-    const float e = expf(-f.x * dt);
-    const float w = T * (1.0f - e);
-    const float wi = P.shading ? w * sel3(r.I, entry) : w;
-    acc0 = acc0 + wi * f.y;
-    acc1 = acc1 + wi * f.z;
-    acc2 = acc2 + wi * f.w;
-    ws = ws + w;
-    te = te + w * (tc + 0.5f * dt);
-    tc = tc + dt;
-    T = T * e;
+    composite(P, expf(-f.x * dt), dt, f, sel3(r.I, entry), a);
   }
-  surf[3 * i + 0] = acc0;
-  surf[3 * i + 1] = acc1;
-  surf[3 * i + 2] = acc2;
-  t_end[i] = T;
-  w_sum[i] = ws;
-  t_exp[i] = te;
+  write_out(a, i, surf, t_end, w_sum, t_exp);
+}
+
+// One lane's share of a ray's window in the split forward: the kC samples
+// from sample ``first`` on, each with its row, exponential, segment length
+// and entry-face intensity.
+template <int kC>
+struct Share {
+  float4 f[kC];
+  float e[kC], dt[kC], inten[kC];
+};
+
+// Walk the DDA to sample ``first``, then take the share's samples: every
+// row is loaded before the first exponential needs one.
+template <int kC>
+RT_DEV void load_share(const Params& P, int i, int first, Share<kC>& sh) {
+  Ray r;
+  load_ray(P, i, r);
+  for (int s = 0; s < first; ++s) r.entry = advance(r);
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    sh.inten[c] = sel3(r.I, r.entry);
+    size_t lin;
+    bool inside;
+    r.entry = step(P, r, sh.dt[c], sh.f[c], lin, inside);
+  }
+#pragma unroll
+  for (int c = 0; c < kC; ++c) sh.e[c] = expf(-sh.f[c].x * sh.dt[c]);
+}
+
+template <int kC>
+RT_DEV void composite_share(const Params& P, const Share<kC>& sh, Acc& a) {
+#pragma unroll
+  for (int c = 0; c < kC; ++c) composite(P, sh.e[c], sh.dt[c], sh.f[c], sh.inten[c], a);
 }
 
 #ifdef __CUDACC__
@@ -299,11 +382,47 @@ RT_DEV void backward_ray(const Params& P, int i, bool valid, const float* g_surf
 constexpr int kThreads = 128;
 constexpr int kBwdSmall = 128, kBwdLarge = 64;
 constexpr int kMaxDevices = 64;
+// window_fwd: the window length with an unrolled kernel (NUM_STEPS of the
+// training path), and the lanes per ray below one wave of rays
+constexpr int kFixedS = 24;
+constexpr int kSplit = 4;
+static_assert(kFixedS % kSplit == 0 && 32 % kSplit == 0, "a ray's lanes share its samples evenly");
 
+template <int kS>
 __global__ void __launch_bounds__(kThreads)
 window_fwd_kernel(rtw::Params P, float* surf, float* t_end, float* w_sum, float* t_exp) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < P.n) rtw::forward_ray(P, i, surf, t_end, w_sum, t_exp);
+  if (i < P.n) rtw::forward_ray<kS>(P, i, surf, t_end, w_sum, t_exp);
+}
+
+// kK lanes per ray (below one wave of rays): lane k of a ray loads and
+// exponentiates samples [k kS / kK, (k + 1) kS / kK), then the lanes
+// composite in turn, lane k taking lane k - 1's running sums by a shuffle.
+// Padding lanes of the last warp march the last ray and write nothing.
+template <int kS, int kK>
+__global__ void __launch_bounds__(kThreads)
+window_fwd_split_kernel(rtw::Params P, float* surf, float* t_end, float* w_sum, float* t_exp) {
+  constexpr int kC = kS / kK;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int ray = t / kK, sub = t % kK;
+  const int i = ray < P.n ? ray : P.n - 1;
+  rtw::Share<kC> sh;
+  rtw::load_share<kC>(P, i, sub * kC, sh);
+  rtw::Acc a = rtw::acc_start();
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    if (sub == k) rtw::composite_share<kC>(P, sh, a);
+    if (k + 1 < kK) {  // every lane takes part; lane k + 1 keeps what it gets
+      a.T = __shfl_up_sync(0xFFFFFFFFu, a.T, 1, kK);
+      a.acc0 = __shfl_up_sync(0xFFFFFFFFu, a.acc0, 1, kK);
+      a.acc1 = __shfl_up_sync(0xFFFFFFFFu, a.acc1, 1, kK);
+      a.acc2 = __shfl_up_sync(0xFFFFFFFFu, a.acc2, 1, kK);
+      a.ws = __shfl_up_sync(0xFFFFFFFFu, a.ws, 1, kK);
+      a.te = __shfl_up_sync(0xFFFFFFFFu, a.te, 1, kK);
+      a.tc = __shfl_up_sync(0xFFFFFFFFu, a.tc, 1, kK);
+    }
+  }
+  if (ray < P.n && sub == kK - 1) rtw::write_out(a, i, surf, t_end, w_sum, t_exp);
 }
 
 template <int kBwdThreads>
@@ -348,6 +467,25 @@ static int small_wave_rays() {
   return rays;
 }
 
+// Rays in one wave of window_fwd's unrolled one-lane kernel on the current
+// device; kept per device like small_wave_rays.
+static int fwd_wave_rays() {
+  static int wave[kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const bool kept = dev >= 0 && dev < kMaxDevices;
+  if (kept && wave[dev] > 0) return wave[dev];
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_fwd_kernel<kFixedS>, kThreads, 0);
+  const int rays = per_sm * sms * kThreads;
+  if (kept) wave[dev] = rays;
+  return rays;
+}
+
+// window_fwd: S == kFixedS runs unrolled, split over kSplit lanes a ray when
+// the rays fill less than one wave of the one-lane kernel; other S the
+// generic loop.
 extern "C" int window_fwd_launch(
     const void* field, int sx, int sy, int sz,
     const void* cell, const void* tmax, const void* istep, const void* absd,
@@ -356,10 +494,23 @@ extern "C" int window_fwd_launch(
   if (n <= 0) return 0;
   const rtw::Params P = make_params(field, sx, sy, sz, cell, tmax, istep, absd, n, S, shading,
                                     sun_x, sun_y, sun_z);
-  const int blocks = (n + kThreads - 1) / kThreads;
-  window_fwd_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      P, static_cast<float*>(surf), static_cast<float*>(t_end), static_cast<float*>(w_sum),
-      static_cast<float*>(t_exp));
+  auto* o_surf = static_cast<float*>(surf);
+  auto* o_tend = static_cast<float*>(t_end);
+  auto* o_wsum = static_cast<float*>(w_sum);
+  auto* o_texp = static_cast<float*>(t_exp);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (S == kFixedS && n <= fwd_wave_rays()) {
+    const long long threads = static_cast<long long>(n) * kSplit;
+    window_fwd_split_kernel<kFixedS, kSplit>
+        <<<static_cast<int>((threads + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+            P, o_surf, o_tend, o_wsum, o_texp);
+  } else if (S == kFixedS) {
+    window_fwd_kernel<kFixedS><<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+        P, o_surf, o_tend, o_wsum, o_texp);
+  } else {
+    window_fwd_kernel<0><<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+        P, o_surf, o_tend, o_wsum, o_texp);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -382,13 +533,19 @@ extern "C" int window_bwd_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks per SM of the forward (which 0) or the backward kernel (which 1:
-// its small-launch block, 2: its large-launch block), and (threads != null)
-// the block size.
+// Blocks per SM of the forward (which 0: its unrolled one-lane kernel, 3:
+// its split kernel, 4: its generic loop) or the backward kernel (which 1:
+// its small-launch block, 2: its large-launch block), and (threads !=
+// null) the block size.
 extern "C" int window_blocks_per_sm(int which, int* threads) {
   int blocks = -1, t = kThreads;
   if (which == 0) {
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, window_fwd_kernel, t, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, window_fwd_kernel<kFixedS>, t, 0);
+  } else if (which == 3) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, window_fwd_split_kernel<kFixedS, kSplit>, t, 0);
+  } else if (which == 4) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, window_fwd_kernel<0>, t, 0);
   } else if (which == 1) {
     t = kBwdSmall;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, window_bwd_kernel<kBwdSmall>, t, 0);

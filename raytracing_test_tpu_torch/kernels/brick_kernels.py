@@ -24,9 +24,17 @@ Dispatch is by the device of the tensors, as in ``kernels/fused_march.py``:
 CPU tensors run the plain versions, CUDA tensors launch the kernels or
 raise. There is no fallback from one to the other. ``LAUNCHES_ADVANCE`` and
 ``LAUNCHES_FINE`` count kernel launches.
+
+Kernel A works in place on a writable march state. ``brick_advance`` leaves
+its caller's state as it is: it copies the fields kernel A writes and
+launches on the copy. ``advance_loop``, the brick hook of the brick path,
+makes no copy: the state it gets comes from the round's last ``brick_fine``
+launch, whose fresh outputs nothing else holds.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -44,6 +52,8 @@ LAUNCHES_FINE = 0  # brick_fine launches in this process (never the plain path)
 _GLUE_CAP = 64  # material glue passes per fine phase (make_pallas_loops :552)
 
 brick_advance_plain = bricks._brick_loop
+# the fields of the march state that kernel A writes in place
+ADVANCE_WRITES = ("cell", "tmax", "mat", "done", "last_t", "last_axis", "steps")
 
 
 def _prop_luts(scene: Scene, shadow: bool, enable_materials: bool) -> torch.Tensor:
@@ -153,19 +163,29 @@ def _raise_on(err: int, lib, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {lib.kernel_error_string(err).decode()}")
 
 
-def _advance_args(scene: Scene, table: torch.Tensor, s: _March, budget: int):
-    """(arguments of brick_advance_launch, outputs, inputs to keep alive)."""
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _advance_args(scene: Scene, table: torch.Tensor, s: _March, budget: int, image_w: int = 0):
+    """(arguments of brick_advance_launch, inputs to keep alive) for kernel A
+    in place on ``s``: the fields in ADVANCE_WRITES are written, so they must
+    be contiguous already (a copy would take the writes). ``image_w`` > 0:
+    the lanes are a row-major image that wide, advanced in 8x4 warp tiles."""
     dev = s.cell.device
+    N = s.cell.shape[0]
     Sx, Sy, Sz = scene.shape3
     sh = scene.brick_shift
     table = _check(table, "brick distance table", torch.uint8, (Sx >> sh, Sy >> sh, Sz >> sh), dev)
+    for f in ADVANCE_WRITES:
+        if not getattr(s, f).is_contiguous():
+            raise ValueError(f"brick_advance: {f} must be contiguous, it is written in place")
+    if image_w < 0 or (image_w and N % image_w):
+        raise ValueError(f"brick_advance: {N} lanes are no image {image_w} wide")
     ins = [table] + _state_args(s, dev)
-    out = _outputs(s.cell.shape[0], dev)
     args = ([table.data_ptr(), Sx, Sy, Sz, sh, int(scene.y_max), int(budget)]
-            + [t.data_ptr() for t in ins[1:]] + [s.cell.shape[0]]
-            + [t.data_ptr() for t in out.values()]
-            + [torch.cuda.current_stream(dev).cuda_stream])
-    return args, out, ins
+            + [t.data_ptr() for t in ins[1:]] + [N, int(image_w), _stream(dev)])
+    return args, ins
 
 
 def _fine_args(scene: Scene, s: _March, blin: torch.Tensor, luts: torch.Tensor, budget: int):
@@ -184,23 +204,63 @@ def _fine_args(scene: Scene, s: _March, blin: torch.Tensor, luts: torch.Tensor, 
     args = ([bmat.data_ptr(), luts.data_ptr(), Sx, Sy, Sz, sh, int(budget)]
             + [t.data_ptr() for t in ins[3:]] + [blin.data_ptr(), N]
             + [t.data_ptr() for t in out.values()]
-            + [evt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream])
+            + [evt.data_ptr(), _stream(dev)])
     return args, out, evt, ins
 
 
-def brick_advance(scene: Scene, table: torch.Tensor, s: _March, budget: int) -> _March:
-    """Kernel A on a march state: CPU tensors run ``brick_advance_plain``,
-    CUDA tensors launch the kernel (or raise)."""
+def writable(s: _March) -> _March:
+    """``s`` with fresh contiguous copies of the fields kernel A writes."""
+    return s._replace(**{f: getattr(s, f).clone(memory_format=torch.contiguous_format)
+                         for f in ADVANCE_WRITES})
+
+
+def _launch_advance(scene: Scene, table: torch.Tensor, s: _March, budget: int,
+                    image_w: int) -> _March:
     global LAUNCHES_ADVANCE
-    if _device(scene, s, "brick_advance").type == "cpu":
-        return brick_advance_plain(scene, table, s, budget)
     from . import build
 
     lib = build.library("brick_march")
-    args, out, _ = _advance_args(scene, table, s, budget)
+    args, _ = _advance_args(scene, table, s, budget, image_w)
     _raise_on(lib.brick_advance_launch(*args), lib, "brick_advance")
     LAUNCHES_ADVANCE += 1
-    return s._replace(**out)
+    return s
+
+
+def brick_advance(scene: Scene, table: torch.Tensor, s: _March, budget: int,
+                  image_w: int = 0) -> _March:
+    """Kernel A on a march state -> the advanced state; ``s`` is left as it
+    is. CPU tensors run ``brick_advance_plain``; CUDA tensors launch the
+    kernel in place on a copy of the fields it writes (or raise)."""
+    if _device(scene, s, "brick_advance").type == "cpu":
+        return brick_advance_plain(scene, table, s, budget)
+    return _launch_advance(scene, table, writable(s), budget, image_w)
+
+
+def advance_loop(scene: Scene, table: torch.Tensor, s: _March, budget: int,
+                 image_w: int = 0) -> _March:
+    """``brick_march``'s brick hook on kernel A, in place on ``s``: the
+    fields it writes come from the round's last ``brick_fine`` launch
+    (``fine_loop`` ends with one), fresh tensors that nothing else holds, so
+    the round makes no copy. CPU tensors run ``brick_advance_plain``."""
+    if _device(scene, s, "brick_advance").type == "cpu":
+        return brick_advance_plain(scene, table, s, budget)
+    return _launch_advance(scene, table, s, budget, image_w)
+
+
+def occupancy():
+    """Blocks per SM and block size of brick_advance and brick_fine, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    import ctypes
+
+    from . import build
+
+    lib = build.library("brick_march")
+    out = {}
+    for which, name in ((0, "brick_advance"), (1, "brick_fine")):
+        threads = ctypes.c_int(0)
+        out[name] = lib.brick_blocks_per_sm(which, ctypes.byref(threads))
+        out[f"{name} threads"] = threads.value
+    return out
 
 
 def brick_fine(scene: Scene, s: _March, blin: torch.Tensor, luts: torch.Tensor, budget: int):
@@ -246,14 +306,19 @@ def fine_loop(scene: Scene, s: _March, blin, cfg: RenderConfig, budget: int, sha
 
 
 def render_rays_bricks_pallas(scene: Scene, origin, dirs, cfg: RenderConfig, start_t=None,
-                              time_s=None):
-    """The brick path with both inner loops on the kernels -> (rgb [N,3], aux)."""
+                              time_s=None, image_w: int = 0):
+    """The brick path with both inner loops on the kernels -> (rgb [N,3],
+    aux). ``image_w`` > 0 says the rays are a row-major image that wide
+    (kernel A then advances 8x4 pixel tiles per warp; the results are the
+    same)."""
     return bricks.render_rays_bricks(scene, origin, dirs, cfg, start_t=start_t, time_s=time_s,
-                                     fine_loop=fine_loop, brick_loop=brick_advance)
+                                     fine_loop=fine_loop,
+                                     brick_loop=functools.partial(advance_loop, image_w=image_w))
 
 
 def render_image_bricks_pallas(scene: Scene, camera: Camera, cfg: RenderConfig, time_s=None):
     """Full frame [H, W, 3] through the brick kernels, crosshair included."""
     dirs = ray_directions(camera, cfg.width, cfg.height, cfg.fov_degrees)
-    col, _ = render_rays_bricks_pallas(scene, camera.pos, dirs, cfg, time_s=time_s)
+    col, _ = render_rays_bricks_pallas(scene, camera.pos, dirs, cfg, time_s=time_s,
+                                       image_w=cfg.width)
     return crosshair(col.reshape(cfg.height, cfg.width, 3), cfg)

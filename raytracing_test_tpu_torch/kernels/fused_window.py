@@ -118,6 +118,10 @@ def _ray_args(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading):
             float(sun[0]), float(sun[1]), float(sun[2])]
 
 
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def _raise_on(lib, err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: {lib.kernel_error_string(err).decode()}")
@@ -134,7 +138,7 @@ def _fwd_args(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading):
     surf = torch.empty((N, 3), dtype=torch.float32, device=dev)
     t_end, w_sum, t_exp = (torch.empty(N, dtype=torch.float32, device=dev) for _ in range(3))
     outs = (surf, t_end, w_sum, t_exp)
-    args += [t.data_ptr() for t in outs] + [torch.cuda.current_stream(dev).cuda_stream]
+    args += [t.data_ptr() for t in outs] + [_stream(dev)]
     return lib.window_fwd_launch, args, outs
 
 
@@ -165,9 +169,8 @@ def _bwd_args(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading,
     grad = torch.zeros_like(field)  # Adam takes the dense gradient
     g_tmax = torch.empty((N, 3), dtype=torch.float32, device=dev)
     g_abs = torch.empty((N, 3), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     args += [g_surf.data_ptr(), g_tend.data_ptr(), surf.data_ptr(), t_end.data_ptr(),
-             grad.data_ptr(), g_tmax.data_ptr(), g_abs.data_ptr(), stream]
+             grad.data_ptr(), g_tmax.data_ptr(), g_abs.data_ptr(), _stream(dev)]
     return lib.window_bwd_launch, args, grad, g_tmax, g_abs, (g_surf, g_tend, surf, t_end)
 
 
@@ -186,15 +189,18 @@ def _launch_bwd(field, cell, tmax, istep, abs_delta, shape3, sun, S, shading,
 
 
 def occupancy():
-    """Blocks per SM and block size of window_fwd and window_bwd, from
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    """Blocks per SM and block size of window_fwd (its unrolled one-lane
+    kernel, its split kernel below a wave, its generic loop) and window_bwd,
+    from cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
     import ctypes
 
     from . import build
 
     lib = build.library("fused_window")
     out = {}
-    for which, name in ((0, "window_fwd"), (1, "window_bwd"), (2, "window_bwd above a wave")):
+    for which, name in ((0, "window_fwd"), (3, "window_fwd below a wave"),
+                        (4, "window_fwd generic S"), (1, "window_bwd"),
+                        (2, "window_bwd above a wave")):
         threads = ctypes.c_int(0)
         out[name] = lib.window_blocks_per_sm(which, ctypes.byref(threads))
         out[f"{name} threads"] = threads.value

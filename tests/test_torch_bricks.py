@@ -14,6 +14,8 @@ the brick frame equals the plain fused frame bit for bit, as
 ``tests/test_bricks.py`` holds the JAX brick path to the JAX fast path.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -334,8 +336,95 @@ def test_no_silent_fallback_off_cpu(terrain_scenes, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         tbk.brick_advance(ts, ts.brick_dist, s, 10)
     with pytest.raises(RuntimeError, match="nvcc"):
+        tbk.advance_loop(ts, ts.brick_dist, s, 10)
+    with pytest.raises(RuntimeError, match="nvcc"):
         tbk.brick_fine(ts, s, blin, luts, 10)
     assert (tbk.LAUNCHES_ADVANCE, tbk.LAUNCHES_FINE) == (0, 0)
+
+
+def _view(ptr, dtype, shape):
+    """A CPU tensor on the memory at address ``ptr``: what a stand-in for a
+    kernel sees of the pointer it is handed."""
+    ct = {torch.int32: ctypes.c_int32, torch.float32: ctypes.c_float, torch.bool: ctypes.c_bool}
+    n = int(np.prod(shape))
+    return torch.from_numpy(np.ctypeslib.as_array((ct[dtype] * n).from_address(ptr))).reshape(shape)
+
+
+class _PlainAdvanceLibrary:
+    """Stands in for the brick_march library: its brick_advance_launch runs
+    brick_advance_plain on the memory it is handed and writes the result
+    there, in place, as the kernel does."""
+
+    def __init__(self, scene, base):
+        self.scene, self.base, self.widths = scene, base, []
+
+    def brick_advance_launch(self, table, sx, sy, sz, shift, y_max, budget, cell, tmax, step,
+                             abs_delta, mat, done, last_t, last_axis, steps, n, width, stream):
+        assert table == self.scene.brick_dist.data_ptr() and (sx, sy, sz) == self.scene.shape3
+        i32, f32 = torch.int32, torch.float32
+        mem = {"cell": (cell, i32, (n, 3)), "tmax": (tmax, f32, (n, 3)),
+               "step": (step, f32, (n, 3)), "abs_delta": (abs_delta, f32, (n, 3)),
+               "mat": (mat, i32, (n,)), "done": (done, torch.bool, (n,)),
+               "last_t": (last_t, f32, (n,)), "last_axis": (last_axis, i32, (n,)),
+               "steps": (steps, i32, (n,))}
+        views = {k: _view(*v) for k, v in mem.items()}
+        s = self.base._replace(**{k: v.clone() for k, v in views.items()})
+        out = tbk.brick_advance_plain(self.scene, self.scene.brick_dist, s, budget)
+        for f in tbk.ADVANCE_WRITES:
+            views[f].copy_(getattr(out, f))
+        self.widths.append(width)
+        return 0
+
+    def kernel_error_string(self, err):
+        return b"stand-in"
+
+
+def test_brick_advance_kernel_path_owns_its_writes(terrain_scenes, monkeypatch):
+    """The wrappers' CUDA branch on a stand-in library that advances in
+    place (on CPU memory): brick_advance leaves the caller's state as it
+    was and returns the advanced copy; advance_loop, the brick path's hook,
+    advances the state it is given in place; each launch counts once and
+    passes the image width; a width that does not divide the lanes and a
+    field that is not contiguous are refused."""
+    _, ts = terrain_scenes
+    rcfg = RenderConfig(width=16, height=12, max_steps=150, shadow_steps=40)
+    s = tfast._init_state(torch.tensor(TERRAIN_VIEW[0]),
+                          torch.from_numpy(np.array(_dirs(*TERRAIN_VIEW, rcfg)[1])),
+                          torch.ones(16 * 12))
+    s, _, _ = tfast.start_cell(ts, s)
+    s = tbricks._fine_loop(ts, s, tbricks.occupied_brick(ts, ts.brick_dist, s), rcfg, 150, False,
+                           0.0)
+    want = tbk.brick_advance_plain(ts, ts.brick_dist, s, 150)
+    assert not torch.equal(want.cell, s.cell)  # lanes advance
+    lib = _PlainAdvanceLibrary(ts, s)
+    monkeypatch.setattr(tbk, "_device", lambda scene, st, what: torch.device("cuda"))
+    monkeypatch.setattr(tbk, "_stream", lambda dev: 0)
+    monkeypatch.setattr(build, "_LIBS", {"brick_march": lib})
+    monkeypatch.setattr(tbk, "LAUNCHES_ADVANCE", tbk.LAUNCHES_ADVANCE)  # restored afterwards
+    before = {f: getattr(s, f).clone() for f in tbk.ADVANCE_WRITES}
+    n0 = tbk.LAUNCHES_ADVANCE
+
+    got = tbk.brick_advance(ts, ts.brick_dist, s, 150, image_w=16)
+    assert tbk.LAUNCHES_ADVANCE == n0 + 1 and lib.widths == [16]
+    for f in tbk.ADVANCE_WRITES:
+        assert torch.equal(getattr(s, f), before[f]), f  # the caller's state is untouched
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert getattr(got, f).data_ptr() != getattr(s, f).data_ptr(), f
+
+    mine = tbk.writable(s)
+    ptrs = {f: getattr(mine, f).data_ptr() for f in tbk.ADVANCE_WRITES}
+    out = tbk.advance_loop(ts, ts.brick_dist, mine, 150)
+    assert tbk.LAUNCHES_ADVANCE == n0 + 2 and lib.widths == [16, 0]
+    for f in tbk.ADVANCE_WRITES:
+        assert getattr(out, f).data_ptr() == ptrs[f], f  # written in place
+        assert torch.equal(getattr(mine, f), getattr(want, f)), f
+
+    with pytest.raises(ValueError, match="no image 7 wide"):
+        tbk.brick_advance(ts, ts.brick_dist, s, 150, image_w=7)
+    strided = s._replace(tmax=s.tmax.t().contiguous().t())
+    with pytest.raises(ValueError, match="tmax must be contiguous"):
+        tbk.advance_loop(ts, ts.brick_dist, strided, 150)
+    assert tbk.LAUNCHES_ADVANCE == n0 + 2
 
 
 # ---- the CLI
@@ -353,11 +442,21 @@ def test_cli_bricks_pallas_matches_fused_png(tmp_path):
     assert cli.build_parser().parse_args(["render", "--mode", "bricks"]).mode == "bricks"
 
 
-@pytest.mark.parametrize("mode", ["fast", "reference", "progressive", "pallas", "spatial",
-                                  "handoff", "nonsense"])
+@pytest.mark.parametrize("mode", ["fast", "reference", "progressive", "spatial", "handoff",
+                                  "nonsense"])
 def test_cli_unported_modes_raise(mode, capsys):
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(["render", "--mode", mode])
     err = capsys.readouterr().err
     assert ("ROADMAP.md" in err) == (mode != "nonsense"), err
     assert mode in err
+
+
+def test_cli_pallas_mode_has_no_renderer(capsys):
+    """The JAX CLI offers ``--mode pallas`` but its session renders nothing
+    for it (``ValueError: unknown render mode``); the port rejects it so."""
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["render", "--mode", "pallas"])
+    err = capsys.readouterr().err
+    assert "'pallas'" in err and "the reference does not render this mode" in err, err
+    assert "ROADMAP" not in err and "not ported" not in err, err

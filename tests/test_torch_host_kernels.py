@@ -1,13 +1,17 @@
 """PyTorch port: the per-ray code of the CUDA kernels, built as host C++ with
 g++, against the kernels' plain PyTorch versions.
 
-``csrc/fused_march.cu`` and ``csrc/fused_window.cu`` keep their per-ray code
-in plain C++ behind ``RT_DEV``. A harness (below) includes each source and
-calls the same entry points the CUDA kernels call: the march's ``ray_of``
-work order (8x4 pixel tiles of an image, or natural order) and its
-``march_ray`` in each compile-time mode; and the window's ``forward_ray``
-and ``backward_ray`` (the backward's warp reduction and atomics are
-device-only: the host adds each sample's row with ``+=``).
+``csrc/fused_march.cu``, ``csrc/fused_window.cu`` and ``csrc/brick_march.cu``
+keep their per-ray code in plain C++ behind ``RT_DEV``. A harness (below)
+includes each source and calls the same entry points the CUDA kernels call:
+the march's ``ray_of`` work order (8x4 pixel tiles of an image, or natural
+order) and its ``march_ray`` in each compile-time mode; the window's
+``forward_ray`` (generic and unrolled), its split forward (each lane's
+``load_share``, then ``composite_share`` in lane order, the running sums
+passed on as the device's shuffles pass them) and ``backward_ray`` (the
+backward's warp reduction and atomics are device-only: the host adds each
+sample's row with ``+=``); and brick_advance's in-place ``advance_in_place``
+over the same work order, with the launch function's arguments.
 The library is built inside the tests, never at import; without g++ they
 skip.
 
@@ -16,7 +20,8 @@ rays that no refraction bent; a bent ray's normal wobbles through
 ``sinf``, which glibc and the PyTorch CPU kernel may round one ulp apart, so
 those are held to ``assert_images_close`` after shading, with mat and cell
 equal on >= 99.9% of rays. window_fwd to 1e-6, window_bwd's gradients to
-1e-5 of their largest magnitude against autograd of ``window_plain``.
+1e-5 of their largest magnitude against autograd of ``window_plain``; the
+forward's paths equal to each other to the bit. brick_advance exactly.
 """
 
 import ctypes
@@ -31,10 +36,11 @@ from raytracing_test_tpu_torch.config import RenderConfig, WorldConfig
 from raytracing_test_tpu_torch.core.color import rgb_to_u64
 from raytracing_test_tpu_torch.core.flatten import palette_arrays, scene_from_grid
 from raytracing_test_tpu_torch.core.types import Block, Properties
+from raytracing_test_tpu_torch.kernels import brick_kernels as bk
 from raytracing_test_tpu_torch.kernels import build
 from raytracing_test_tpu_torch.kernels import fused_march as fm
 from raytracing_test_tpu_torch.kernels import fused_window as fw
-from raytracing_test_tpu_torch.render import fast
+from raytracing_test_tpu_torch.render import bricks, fast
 from raytracing_test_tpu_torch.render.camera import Camera, ray_directions
 from raytracing_test_tpu_torch.render.diff import _pack_fields, diff_scene_from_grid
 from raytracing_test_tpu_torch.worldgen import terrain
@@ -120,6 +126,47 @@ extern "C" void host_window_fwd(const float* field, int sx, int sy, int sz, cons
   for (int i = 0; i < n; ++i) rtw::forward_ray(P, i, surf, t_end, w_sum, t_exp);
 }
 
+template <int kS, int kK>
+static void split_fwd(const rtw::Params& P, float* surf, float* t_end, float* w_sum,
+                      float* t_exp) {
+  constexpr int kC = kS / kK;
+  for (int i = 0; i < P.n; ++i) {
+    rtw::Acc a = rtw::acc_start();
+    for (int sub = 0; sub < kK; ++sub) {  // the ray's lanes in turn, the sums passed on
+      rtw::Share<kC> sh;
+      rtw::load_share<kC>(P, i, sub * kC, sh);
+      rtw::composite_share<kC>(P, sh, a);
+    }
+    rtw::write_out(a, i, surf, t_end, w_sum, t_exp);
+  }
+}
+
+// path 0: the generic loop, 1: unrolled for 24 samples, 2 + k: split over
+// 1, 2, 4 or 8 lanes a ray (k = 0..3); the unrolled and split paths need S 24
+extern "C" int host_window_fwd_path(int path, const float* field, int sx, int sy, int sz,
+                                    const int32_t* cell, const float* tmax,
+                                    const int32_t* istep, const float* absd, int n, int S,
+                                    int shading, float sun_x, float sun_y, float sun_z,
+                                    float* surf, float* t_end, float* w_sum, float* t_exp) {
+  const rtw::Params P = params(field, sx, sy, sz, cell, tmax, istep, absd, n, S, shading,
+                               sun_x, sun_y, sun_z);
+  if (path > 0 && S != 24) return 1;
+  switch (path) {
+    case 0:
+      for (int i = 0; i < n; ++i) rtw::forward_ray<0>(P, i, surf, t_end, w_sum, t_exp);
+      break;
+    case 1:
+      for (int i = 0; i < n; ++i) rtw::forward_ray<24>(P, i, surf, t_end, w_sum, t_exp);
+      break;
+    case 2: split_fwd<24, 1>(P, surf, t_end, w_sum, t_exp); break;
+    case 3: split_fwd<24, 2>(P, surf, t_end, w_sum, t_exp); break;
+    case 4: split_fwd<24, 4>(P, surf, t_end, w_sum, t_exp); break;
+    case 5: split_fwd<24, 8>(P, surf, t_end, w_sum, t_exp); break;
+    default: return 1;
+  }
+  return 0;
+}
+
 extern "C" void host_window_bwd(const float* field, int sx, int sy, int sz, const int32_t* cell,
                                 const float* tmax, const int32_t* istep, const float* absd,
                                 int n, int S, int shading, float sun_x, float sun_y,
@@ -135,21 +182,70 @@ extern "C" void host_window_bwd(const float* field, int sx, int sy, int sz, cons
 """
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+BRICK_HARNESS = r"""
+#include "brick_march.cu"
+
+// brick_advance_launch's work on the host, with its arguments: thread j of
+// the launch advances lane ray_of(n, width, j) in place
+extern "C" int host_brick_advance(const void* dist, int sx, int sy, int sz, int shift,
+                                  int y_max, int budget, void* cell, void* tmax,
+                                  const void* step, const void* abs_delta, void* mat,
+                                  void* done, void* lt, void* la, void* steps, int n,
+                                  int width, void* stream) {
+  (void)stream;
+  rb::State S{static_cast<const int32_t*>(cell), static_cast<const float*>(tmax),
+              static_cast<const float*>(step), static_cast<const float*>(abs_delta),
+              static_cast<const int32_t*>(mat), static_cast<const uint8_t*>(done),
+              static_cast<const float*>(lt), static_cast<const int32_t*>(la),
+              static_cast<const int32_t*>(steps)};
+  rb::Out O{static_cast<int32_t*>(mat), static_cast<int32_t*>(cell),
+            static_cast<float*>(tmax), static_cast<float*>(lt), static_cast<int32_t*>(la),
+            static_cast<int32_t*>(steps), static_cast<uint8_t*>(done)};
+  rb::Grid G{sx, sy, sz, shift, sy >> shift, sz >> shift};
+  const int items = rt::work_items(n, width);
+  for (int j = 0; j < items; ++j) {
+    const int i = rt::ray_of(n, width, j);
+    if (i >= 0) rb::advance_in_place(S, O, static_cast<const uint8_t*>(dist), G, y_max, budget, i);
+  }
+  return 0;
+}
+
+extern "C" const char* kernel_error_string(int err) { return err ? "host error" : "no error"; }
+"""
+
+
+def build_host_library(d, harnesses):
+    """g++ the harnesses ({file stem: source}) into one shared library in
+    directory ``d``, loaded; skips the test without g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not found: the host build of the CUDA sources needs it")
-    d = tmp_path_factory.mktemp("host_kernels")
-    (d / "march_harness.cpp").write_text(MARCH_HARNESS)
-    (d / "window_harness.cpp").write_text(WINDOW_HARNESS)
+    files = []
+    for stem, code in harnesses.items():
+        (d / f"{stem}.cpp").write_text(code)
+        files.append(str(d / f"{stem}.cpp"))
     so = d / "libhost_kernels.so"
     cmd = [gxx, "-std=c++17", "-x", "c++", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-           "-I", str(build.CSRC_DIR), "-o", str(so),
-           str(d / "march_harness.cpp"), str(d / "window_harness.cpp")]
+           "-I", str(build.CSRC_DIR), "-o", str(so), *files]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    lib = ctypes.CDLL(str(so))
+    return ctypes.CDLL(str(so))
+
+
+def declare_brick_advance(lib):
+    """The argument types of host_brick_advance: brick_advance_launch's."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.host_brick_advance.argtypes = [P] + [I] * 6 + [P] * 9 + [I, I, P]
+    lib.host_brick_advance.restype = I
+    lib.kernel_error_string.argtypes = [I]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    lib = build_host_library(tmp_path_factory.mktemp("host_kernels"),
+                             {"march_harness": MARCH_HARNESS, "window_harness": WINDOW_HARNESS,
+                              "brick_harness": BRICK_HARNESS})
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.host_march.argtypes = ([P, P, I, P, I] + [I] * 6 + [F] * 4 + [P] * 6 + [I] * 2
                                + [P] * 12)
@@ -163,6 +259,9 @@ def host_lib(tmp_path_factory):
     lib.host_window_fwd.restype = None
     lib.host_window_bwd.argtypes = rays + [P] * 7
     lib.host_window_bwd.restype = None
+    lib.host_window_fwd_path.argtypes = [I] + rays + [P] * 4
+    lib.host_window_fwd_path.restype = I
+    declare_brick_advance(lib)
     return lib
 
 
@@ -260,8 +359,10 @@ def test_host_tile_map_is_a_permutation(host_lib, size):
     np.testing.assert_array_equal(natural, np.r_[np.arange(n), [-1] * 3])
 
 
-@pytest.mark.parametrize("shading", [False, True])
-def test_host_window_matches_plain_version(host_lib, worlds, shading):
+@pytest.fixture(scope="module")
+def window_rays(worlds):
+    """(field, shape3, cell, tmax, istep, abs_delta) of the terrain view's
+    windows, seeded by the march."""
     grid, pal, views = worlds
     scene, pos, dirn, _ = views["terrain"]
     ds = diff_scene_from_grid(grid, palette_arrays(pal)[0], "cpu", solid_density=50.0)
@@ -271,6 +372,12 @@ def test_host_window_matches_plain_version(host_lib, worlds, shading):
     dirs = ray_directions(cam, W, H)
     seed = fm.seed_depth_fused(scene, cam.pos, dirs, None)
     _, _, cell, tmax, istep, absd = fw.window_inputs(shape3, cam.pos, dirs, seed)
+    return field, shape3, cell, tmax, istep, absd
+
+
+@pytest.mark.parametrize("shading", [False, True])
+def test_host_window_matches_plain_version(host_lib, window_rays, shading):
+    field, shape3, cell, tmax, istep, absd = window_rays
     n, S = cell.shape[0], 24
     sun = fast.sun_unit((2.0, 1.0, 4.0))
     rays = [field.data_ptr(), *shape3, cell.data_ptr(), tmax.data_ptr(), istep.data_ptr(),
@@ -299,3 +406,137 @@ def test_host_window_matches_plain_version(host_lib, worlds, shading):
         assert scale > 0, name
         err = float((g - w).abs().max()) / scale
         assert err <= 1e-5, f"{name} gradient: {err:.3e} max-scaled"
+
+
+FWD_PATHS = {"generic": 0, "unrolled": 1, "split1": 2, "split2": 3, "split4": 4, "split8": 5}
+
+
+@pytest.mark.parametrize("path", list(FWD_PATHS))
+def test_host_window_fwd_paths_match_plain_version(host_lib, window_rays, path):
+    """Each forward path (the unrolled loop, and the split forward with 1,
+    2, 4 or 8 lanes a ray: each lane's share loaded ahead, then composited
+    in lane order) equal to the generic loop to the bit, and within 1e-6 of
+    window_plain."""
+    field, shape3, cell, tmax, istep, absd = window_rays
+    n, S = cell.shape[0], 24
+    sun = fast.sun_unit((2.0, 1.0, 4.0))
+    for shading in (False, True):
+        rays = [field.data_ptr(), *shape3, cell.data_ptr(), tmax.data_ptr(), istep.data_ptr(),
+                absd.data_ptr(), n, S, int(shading), *[float(v) for v in sun]]
+        outs = {}
+        for p in ("generic", path):
+            o = (torch.empty(n, 3), torch.empty(n), torch.empty(n), torch.empty(n))
+            assert host_lib.host_window_fwd_path(FWD_PATHS[p], *rays,
+                                                 *[t.data_ptr() for t in o]) == 0
+            outs[p] = o
+        with torch.no_grad():
+            want = fw.window_plain(field, cell, tmax, istep, absd, shape3, sun, S, shading)
+        for g, base, w in zip(outs[path], outs["generic"], want):
+            assert torch.equal(g.view(torch.int32), base.view(torch.int32))
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def brick_rounds(worlds):
+    """The water view's primary march at brick_advance's input (after the
+    round's fine phase) in rounds 1 and 3, from the plain brick path."""
+    _, _, views = worlds
+    scene, pos, dirn, time_s = views["water"]
+    rcfg = RenderConfig(width=W, height=H, max_steps=150, shadow_steps=40)
+    s, _, _ = fast.start_cell(scene, _state(pos, dirn))
+    states = {}
+    for r in (1, 2, 3):
+        blin = bricks.occupied_brick(scene, scene.brick_dist, s)
+        s = bricks._fine_loop(scene, s, blin, rcfg, rcfg.max_steps, False, time_s)
+        states[r] = s
+        s = bricks._brick_loop(scene, scene.brick_dist, s, rcfg.max_steps)
+    return scene, rcfg, states
+
+
+def _poison_done(s):
+    """``s`` with the fields brick_advance writes set to sentinels on the
+    done lanes (which it must leave as they are: the plain version does)."""
+    d = s.done
+    sentinel = {"cell": 987654, "tmax": float("nan"), "mat": -5, "last_t": -1.5,
+                "last_axis": 7, "steps": -3}
+    out = {}
+    for f, v in sentinel.items():
+        t = getattr(s, f)
+        mask = d[:, None].expand_as(t) if t.ndim == 2 else d
+        out[f] = torch.where(mask, torch.full_like(t, v), t)
+    return s._replace(**out)
+
+
+def _host_advance(lib, scene, s, budget, width):
+    """brick_advance's host build in place on a writable copy of ``s``."""
+    got = bk.writable(s)
+    Sx, Sy, Sz = scene.shape3
+    err = lib.host_brick_advance(
+        scene.brick_dist.data_ptr(), Sx, Sy, Sz, scene.brick_shift, int(scene.y_max), budget,
+        got.cell.data_ptr(), got.tmax.data_ptr(), s.step.data_ptr(), s.abs_delta.data_ptr(),
+        got.mat.data_ptr(), got.done.data_ptr(), got.last_t.data_ptr(),
+        got.last_axis.data_ptr(), got.steps.data_ptr(), s.cell.shape[0], width, None)
+    assert err == 0
+    return got
+
+
+def test_host_brick_advance_exit_rules(host_lib):
+    """Lanes standing in the occupied brick above y_max (moving up: done
+    with mat 0; moving down, or one cell lower: waiting), and outside the
+    window (moving away: done; moving back: advancing), each against
+    brick_advance_plain to the bit."""
+    from raytracing_test_tpu_torch.core.tree import Palette
+
+    grid = np.zeros((16, 16, 16), np.uint8)
+    grid[1, 8, 1] = 1  # y_max 9; the brick of cells y 8..11 is occupied
+    pal = Palette()
+    pal.id_for(Block(0, 5))
+    scene = scene_from_grid(grid, pal, "cpu")
+    cells = [(1, 10, 1), (1, 10, 1), (1, 9, 1), (-3, 5, 5), (-3, 5, 5), (20, 30, 2)]
+    steps = [(1, 1, 1), (1, -1, 1), (1, 1, 1), (-1, 1, 1), (1, 1, 1), (-1, -1, 1)]
+    n = len(cells)
+    f32 = torch.float32
+    s = fast._init_state(torch.zeros(3), torch.ones(n, 3), torch.ones(n))._replace(
+        cell=torch.tensor(cells, dtype=torch.int32), step=torch.tensor(steps, dtype=f32),
+        abs_delta=torch.tensor([[3.25, 1.25, 2.0]] * n, dtype=f32),
+        tmax=torch.tensor([[0.5, 0.75, 0.625]] * n, dtype=f32), mat=torch.full((n,), 3, dtype=torch.int32),
+        steps=torch.full((n,), 7, dtype=torch.int32), done=torch.zeros(n, dtype=torch.bool))
+    want = bk.brick_advance_plain(scene, scene.brick_dist, s, 150)
+    got = _host_advance(host_lib, scene, s, 150, 0)
+    for f in bk.ADVANCE_WRITES:
+        g, w = getattr(got, f), getattr(want, f)
+        if g.is_floating_point():
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), f
+    assert want.done.tolist()[:4] == [True, False, False, True]
+    assert want.mat.tolist()[:3] == [0, 3, 3]
+    assert torch.equal(want.cell[1:3], s.cell[1:3])  # waiting
+    assert not torch.equal(want.cell[4], s.cell[4])  # back into the window
+
+
+@pytest.mark.parametrize("order", ["tiles", "natural"])
+@pytest.mark.parametrize("rnd", [1, 3])
+def test_host_brick_advance_matches_plain_version(host_lib, brick_rounds, rnd, order):
+    """brick_advance's per-lane code in place, in both work orders, against
+    brick_advance_plain to the bit on a round's input; the done lanes
+    (their fields set to sentinels) and the lanes waiting in an occupied
+    brick come back as they went in."""
+    scene, rcfg, states = brick_rounds
+    s = _poison_done(states[rnd])
+    n = s.cell.shape[0]
+    want = bk.brick_advance_plain(scene, scene.brick_dist, s, rcfg.max_steps)
+    got = _host_advance(host_lib, scene, s, rcfg.max_steps, W if order == "tiles" else 0)
+    same_lane = torch.ones(n, dtype=torch.bool)
+    for f in bk.ADVANCE_WRITES:
+        g, w, s_in = getattr(got, f), getattr(want, f), getattr(s, f)
+        if g.is_floating_point():
+            g, w, s_in = (t.view(torch.int32) for t in (g, w, s_in))
+        assert torch.equal(g, w), f"{f} differs on {int((g != w).reshape(n, -1).any(1).sum())} lanes"
+        same_lane &= (g == s_in).reshape(n, -1).all(dim=1)
+    live = ~s.done
+    moved = live & (want.steps != s.steps)
+    waiting = live & same_lane
+    assert bool(same_lane[s.done].all())
+    assert int(moved.sum()) > 0
+    if rnd > 1:  # a later round has lanes of every kind
+        assert int(s.done.sum()) > 0 and int(waiting.sum()) > 0

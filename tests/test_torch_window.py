@@ -14,6 +14,8 @@ non-finite on the same entries. The CUDA kernels run only on a card
 (``python3 chip_smoke.py`` holds them against ``window_plain`` there).
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -164,6 +166,65 @@ def test_window_function_plumbing(monkeypatch):
     torch.autograd.backward(r[:2], cot)
     for a, b in zip(leaves, ref):
         assert torch.equal(a.grad, b.grad)
+
+
+class _PlainForwardLibrary:
+    """Stands in for the fused_window library: its window_fwd_launch runs
+    window_plain on the memory it is handed and writes the four outputs
+    there, as the kernel does."""
+
+    def __init__(self, field):
+        self.field, self.launches = field, []
+
+    def window_fwd_launch(self, field, sx, sy, sz, cell, tmax, istep, absd, n, S, shading,
+                          sun_x, sun_y, sun_z, surf, t_end, w_sum, t_exp, stream):
+        def view(ptr, ct, shape):
+            count = int(np.prod(shape))
+            return torch.from_numpy(np.ctypeslib.as_array((ct * count).from_address(ptr))).reshape(shape)
+
+        i32, f32 = ctypes.c_int32, ctypes.c_float
+        assert field == self.field.data_ptr()
+        fld = view(field, f32, (sx * sy * sz, 4))
+        rays = [view(cell, i32, (n, 3)), view(tmax, f32, (n, 3)), view(istep, i32, (n, 3)),
+                view(absd, f32, (n, 3))]
+        outs = [view(surf, f32, (n, 3))] + [view(p, f32, (n,)) for p in (t_end, w_sum, t_exp)]
+        with torch.no_grad():
+            got = tfw.window_plain(fld, rays[0], rays[1], rays[2], rays[3], (sx, sy, sz),
+                                   (sun_x, sun_y, sun_z), S, bool(shading))
+        for o, g in zip(outs, got):
+            o.copy_(g)
+        self.launches.append((n, S, shading))
+        return 0
+
+    def kernel_error_string(self, err):
+        return b"stand-in"
+
+
+def test_window_fwd_launch_plumbing(monkeypatch):
+    """_launch_fwd on a stand-in library that computes on the memory it is
+    handed: the arguments reach window_fwd_launch in its order, the outputs
+    come back as window_plain's, and the launch counts once."""
+    from raytracing_test_tpu_torch.kernels import build
+
+    rng = np.random.default_rng(5)
+    shape = (12, 10, 14)
+    field = torch.tensor(rng.uniform(0, 2, (12 * 10 * 14, 4)).astype(np.float32))
+    N = 40
+    cell = torch.tensor(rng.integers(0, 10, (N, 3)).astype(np.int32))
+    istep = torch.tensor(rng.choice([-1, 1], (N, 3)).astype(np.int32))
+    tmax = torch.tensor(rng.uniform(0.1, 1.0, (N, 3)).astype(np.float32))
+    absd = torch.tensor(rng.uniform(1.0, 3.0, (N, 3)).astype(np.float32))
+    sun = tuple(float(v) for v in sun_unit((2.0, 1.0, 4.0)))
+    lib = _PlainForwardLibrary(field)
+    monkeypatch.setattr(build, "_LIBS", {"fused_window": lib})
+    monkeypatch.setattr(tfw, "_stream", lambda dev: 0)
+    monkeypatch.setattr(tfw, "LAUNCHES_FWD", tfw.LAUNCHES_FWD)  # restored afterwards
+    n0 = tfw.LAUNCHES_FWD
+    got = tfw._launch_fwd(field, cell, tmax, istep, absd, shape, sun, 24, True)
+    assert tfw.LAUNCHES_FWD == n0 + 1 and lib.launches == [(N, 24, 1)]
+    want = tfw.window_plain(field, cell, tmax, istep, absd, shape, sun, 24, True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w.detach())
 
 
 def test_window_dispatch_never_falls_back():
