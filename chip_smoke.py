@@ -65,16 +65,15 @@ Phases (any failure raises, and the script exits non-zero):
                    before c and read just after d.
   8. bricks  -- the brick engine (kernels/brick_kernels.py, csrc/brick_march.cu)
                 on the default world at 1024x1024 from the bench camera:
-                a. kernel parity: brick_fine and brick_advance (in 8x4
-                   warp tiles and in natural order) against brick_fine_plain
-                   and brick_advance_plain on the states of the first two
-                   rounds of the primary and the shadow march; integer
-                   fields equal, float fields equal to the bit;
+                a. kernel parity: brick_fine and brick_advance against
+                   brick_fine_plain and brick_advance_plain on the states of
+                   the first two rounds of the primary and the shadow march;
+                   integer fields equal, float fields equal to the bit;
                 b. frame parity: the brick frame on the kernels (the hooks
-                   of render_rays_bricks_pallas, brick_advance in place and
-                   tiled, each of its launches also held to the bit to
-                   brick_advance_plain and to a natural-order launch on a
-                   copy) against render_rays_fused on the fused kernel and
+                   of render_rays_bricks_pallas, brick_advance in place,
+                   each of its launches also held to the bit to
+                   brick_advance_plain and to brick_advance on a copy)
+                   against render_rays_fused on the fused kernel and
                    against the plain brick path (render/bricks.py) on the
                    card, in four configurations: full, lean, the water view
                    at 1.2 (reflected and refracted rays required) and the
@@ -191,6 +190,7 @@ BRICK_FINE_OPS_PER_STEP = 3  # two compares pick the axis, one add advances it
 # march state bytes per ray (kernels/brick_kernels.py _state_args / _outputs)
 BRICK_STATE_IN = 65  # cell, tmax, step, abs_delta 48; mat, last_t, last_axis, steps 16; done 1
 BRICK_STATE_OUT = 41  # mat, cell, tmax, last_t, last_axis, steps, done
+BRICK_WAIT_IN = 25  # done, cell and the step signs: what shows that a live lane stays
 STATE_FIELDS = ("mat", "cell", "tmax", "last_t", "last_axis", "steps", "done")
 
 
@@ -417,11 +417,13 @@ def window_parity(fw, ds, origin, dirs, seed, label):
         for name, a, b in zip(("density", "albedo", "origin", "dirs"), k[1:], p[1:]):
             m = torch.isfinite(b)
             if not torch.equal(torch.isfinite(a), m):
-                raise AssertionError(f"window {label} {kw}: {name} gradient finite on other entries")
+                raise AssertionError(f"window {label} {kw}: {name} gradient finite on other "
+                                     "entries")
             err = (a[m] - b[m]).abs().max()
             scaled[name] = float(err / b[m].abs().max())
             grad_err = max(grad_err, float(err))
-        print(f"parity window {label} {kw}: forward max_abs_err {float(d.max()):.3e} bad_frac {bad:.6f}; "
+        print(f"parity window {label} {kw}: forward max_abs_err {float(d.max()):.3e} "
+              f"bad_frac {bad:.6f}; "
               "gradients max-scaled " + " ".join(f"{k_} {v:.3e}" for k_, v in scaled.items()))
         if max(scaled.values()) > GRAD_TOL:
             raise AssertionError(f"window {label} {kw}: gradients disagree beyond {GRAD_TOL} "
@@ -782,8 +784,9 @@ def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
 
     per_name = profile_step(lambda: step(fw.render_window_fused), card)
     in_step = [t for k, v in per_name.items() if "window_fwd" in k for t in v]
-    print(f"window_fwd {side}^2 x {NUM_STEPS}: {sum(in_step) / len(in_step) / 1e3:.4f} ms of device "
-          f"time inside loss+backward, {bench_bwd['window_fwd_device']:.4f} back to back | {card}")
+    print(f"window_fwd {side}^2 x {NUM_STEPS}: {sum(in_step) / len(in_step) / 1e3:.4f} ms of "
+          f"device time inside loss+backward, {bench_bwd['window_fwd_device']:.4f} back to back "
+          f"| {card}")
 
     # bounds from this run's windows (window_bounds)
     fb, bb, rows = window_bounds(wargs)
@@ -854,33 +857,30 @@ def brick_kernel_parity(scene, s, rcfg, o_full):
             pf, pe = bk.brick_fine_plain(scene, st, blin, luts, budget)
             err = max(err, state_parity(f"brick_fine {march} round {r}", kf, pf, ke, pe))
             after_fine = bricks._fine_loop(scene, st, blin, rcfg, budget, shadow, 0.0)
+            ka = bk.brick_advance(scene, table, after_fine, budget)
             pa = bk.brick_advance_plain(scene, table, after_fine, budget)
-            for order, w in (("8x4 warp tiles", rcfg.width), ("natural order", 0)):
-                ka = bk.brick_advance(scene, table, after_fine, budget, image_w=w)
-                err = max(err, state_parity(f"brick_advance {march} round {r}, {order}", ka, pa))
+            err = max(err, state_parity(f"brick_advance {march} round {r}", ka, pa))
             inputs[(march, r)] = (st, blin, after_fine)
             st = pa
     torch.cuda.synchronize()
     return err, inputs
 
 
-def checked_advance(name, image_w, card):
+def checked_advance(name):
     """brick_march's brick hook as the main path has it (advance_loop, in
-    place, 8x4 warp tiles over the ``image_w``-wide image), with every launch
-    held to the bit to brick_advance_plain on its input and to a
-    natural-order launch on a copy of it. The hook's ``errs`` collects each
-    launch's largest float difference."""
+    place), with every launch held to the bit to brick_advance_plain on its
+    input, and brick_advance on a copy of that input held to it too. The
+    hook's ``errs`` collects each launch's largest float difference."""
     from raytracing_test_tpu_torch.kernels import brick_kernels as bk
 
     def hook(sc, table, s, budget):
         p = bk.brick_advance_plain(sc, table, s, budget)
-        natural = bk.brick_advance(sc, table, s, budget)
-        out = bk.advance_loop(sc, table, s, budget, image_w=image_w)
+        copy = bk.brick_advance(sc, table, s, budget)
+        out = bk.advance_loop(sc, table, s, budget)
         k = len(hook.errs)
         hook.errs.append(max(
-            state_parity(f"brick_advance {name} launch {k}, 8x4 warp tiles", out, p, verbose=False),
-            state_parity(f"brick_advance {name} launch {k}, natural order", natural, p,
-                         verbose=False)))
+            state_parity(f"brick_advance {name} launch {k}, in place", out, p, verbose=False),
+            state_parity(f"brick_advance {name} launch {k}, on a copy", copy, p, verbose=False)))
         return out
 
     hook.errs = []
@@ -890,8 +890,8 @@ def checked_advance(name, image_w, card):
 def brick_frame_parity(name, scene, pos, dirn, rcfg, time_s, card):
     """(b) The brick frame on the kernels against the fused frame and the
     plain brick frame on the card: render_rays_bricks_pallas's hooks, with
-    every brick_advance launch held to its plain version in both work
-    orders (checked_advance). Returns ({reference: max_abs_err}, aux, ray
+    every brick_advance launch held to its plain version
+    (checked_advance). Returns ({reference: max_abs_err}, aux, ray
     directions)."""
     from raytracing_test_tpu_torch.kernels import brick_kernels as bk
     from raytracing_test_tpu_torch.kernels import fused_march as fm
@@ -901,12 +901,12 @@ def brick_frame_parity(name, scene, pos, dirn, rcfg, time_s, card):
     dev = scene.device
     cam = Camera(pos=torch.tensor(pos, device=dev), dir=torch.tensor(dirn, device=dev))
     dirs = ray_directions(cam, rcfg.width, rcfg.height)
-    adv = checked_advance(name, rcfg.width, card)
+    adv = checked_advance(name)
     cb, ab = bricks.render_rays_bricks(scene, cam.pos, dirs, rcfg, time_s=time_s,
                                        fine_loop=bk.fine_loop, brick_loop=adv)
     torch.cuda.synchronize()
     print(f"parity bricks {name}: every brick_advance launch of the frame ({len(adv.errs)}) "
-          f"equal to brick_advance_plain in 8x4 warp tiles and in natural order, max_abs_err "
+          f"equal to brick_advance_plain, in place and on a copy, max_abs_err "
           f"{max(adv.errs):.3e} | {card}")
     if not (torch.isfinite(cb).all() and cb.shape == (rcfg.width * rcfg.height, 3)):
         raise AssertionError(f"bricks {name}: frame not finite or of the wrong shape")
@@ -950,7 +950,7 @@ def counted_brick_frame(scene, pos, dirn, rcfg):
     def adv(sc, table, s, budget):
         st["adv"][int(table is sc.brick_dist_shadow)] += 1
         st["adv_iter"] = max(st["adv_iter"], int(advance_iterations(sc, table, s, budget).max()) + 1)
-        return bk.advance_loop(sc, table, s, budget, image_w=rcfg.width)
+        return bk.advance_loop(sc, table, s, budget)
 
     def fine(sc, s, blin, cfg, budget, shadow, t):
         n0 = bk.LAUNCHES_FINE
@@ -979,10 +979,10 @@ def counted_brick_frame(scene, pos, dirn, rcfg):
     return st
 
 
-def advance_iterations(scene, table, s, budget):
+def advance_iterations(scene, table, s, budget, with_state=False):
     """Advancing iterations of each lane in brick_advance on ``s``, counted
     by the plain loop's march masks (kernel and plain version take the same
-    iterations, part a)."""
+    iterations, part a); with ``with_state`` also the advanced state."""
     from raytracing_test_tpu_torch.render import bricks
 
     count = torch.zeros_like(s.steps)
@@ -991,7 +991,7 @@ def advance_iterations(scene, table, s, budget):
         if not bool(march.any()):
             break
         count += march.to(count.dtype)
-    return count
+    return (count, s) if with_state else count
 
 
 def warp_efficiency(work, order) -> float:
@@ -1009,42 +1009,62 @@ def advance_launch_stats(scene, table, s, budget, width) -> dict:
     and lanes that advance, the advancing iterations (total; mean over the
     live lanes; mean over warps of the warp's largest count, in natural
     order), lane efficiency in natural order and in 8x4 pixel tiles of the
-    ``width``-wide image, and the launch's bound: the full state of each live
-    lane, 1 byte for each done lane and the table, and 20 operations per
-    advancing iteration."""
-    it = advance_iterations(scene, table, s, budget)
+    ``width``-wide image, and the launch's bound: the full state in and out
+    of each lane that changes, the bytes that show that a live lane stays
+    (BRICK_WAIT_IN), 1 byte for each done lane, the table once, and 20
+    operations per advancing iteration."""
+    from raytracing_test_tpu_torch.kernels import brick_kernels as bk
+
+    it, out = advance_iterations(scene, table, s, budget, with_state=True)
     n = it.shape[0]
     live = int((~s.done).sum())
+    changed = torch.zeros_like(s.done)
+    for f in bk.ADVANCE_WRITES:
+        a, b = getattr(out, f), getattr(s, f)
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        changed |= (a != b).reshape(n, -1).any(dim=1)
+    moved = int(changed.sum())
     nat, til = natural_order(n), tile_order_for(n, width)
     pad = torch.cat([it, it.new_zeros(-n % 32)]).reshape(-1, 32)
     total = int(it.to(torch.int64).sum())
-    nbytes = live * (BRICK_STATE_IN + BRICK_STATE_OUT) + (n - live) + table.numel()
+    nbytes = (moved * (BRICK_STATE_IN + BRICK_STATE_OUT) + (live - moved) * BRICK_WAIT_IN
+              + (n - live) + table.numel())
     return {"n": n, "live": live, "advancing": int((it > 0).sum()), "iterations": total,
             "mean": total / max(live, 1), "warp_max": float(pad.max(dim=1).values.float().mean()),
             "eff_natural": warp_efficiency(it, nat), "eff_tiles": warp_efficiency(it, til),
             "bound": bound(nbytes, total * BRICK_ADVANCE_OPS_PER_ITER), "bytes": nbytes}
 
 
-def launch_device_ms(fn, kernel: str, reps: int) -> list:
-    """Device ms of each launch of the kernel whose name holds ``kernel`` in
-    one call of ``fn``, in launch order, each the mean over ``reps`` calls
-    (torch.profiler, after one warm-up call)."""
+def launch_device_ms(fn, kernel: str, reps: int, per_call: int = 1) -> list:
+    """Device ms of each of the ``per_call`` launches of the kernel whose
+    name holds ``kernel`` in one call of ``fn``, in launch order, each the
+    mean over ``reps`` calls (torch.profiler, after one warm-up call). The
+    profiler can drop an event (one brick_advance launch of 20 went missing
+    in every session of two runs on the card): with one launch a call, the
+    mean of the launches it saw (at least half of them) is taken; with more,
+    a session that saw another count than reps x per_call is made again, up
+    to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [t for _, t in sorted((e.time_range.start, e.time_range.elapsed_us())
-                               for e in prof.events()
-                               if e.device_type == DeviceType.CUDA and kernel in e.name)]
-    if not us or len(us) % reps:
-        raise AssertionError(f"{len(us)} launches of {kernel} profiled in {reps} calls")
-    per = len(us) // reps
-    return [sum(us[r * per + i] for r in range(reps)) / reps / 1e3 for i in range(per)]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [t for _, t in sorted((e.time_range.start, e.time_range.elapsed_us())
+                                   for e in prof.events()
+                                   if e.device_type == DeviceType.CUDA and kernel in e.name)]
+        if per_call == 1 and reps // 2 <= len(us) <= reps:
+            return [sum(us) / len(us) / 1e3]
+        if len(us) == reps * per_call:
+            return [sum(us[r * per_call + i] for r in range(reps)) / reps / 1e3
+                    for i in range(per_call)]
+    raise AssertionError(f"{len(us)} launches of {kernel} profiled in {reps} calls, "
+                         f"expected {reps * per_call}")
 
 
 def advance_frame(scene, pos, dirn, rcfg, card, label, reps=3):
@@ -1067,12 +1087,11 @@ def advance_frame(scene, pos, dirn, rcfg, card, label, reps=3):
         st = advance_launch_stats(sc, table, s, budget, rcfg.width)
         st["march"] = "shadow" if table is sc.brick_dist_shadow else "primary"
         stats.append(st)
-        return bk.advance_loop(sc, table, s, budget, image_w=rcfg.width)
+        return bk.advance_loop(sc, table, s, budget)
 
     bricks.render_rays_bricks(scene, cam.pos, dirs, rcfg, fine_loop=bk.fine_loop, brick_loop=adv)
-    ms = launch_device_ms(lambda: bk.render_rays_bricks_pallas(scene, cam.pos, dirs, rcfg,
-                                                               image_w=rcfg.width),
-                          "brick_advance", reps)
+    ms = launch_device_ms(lambda: bk.render_rays_bricks_pallas(scene, cam.pos, dirs, rcfg),
+                          "brick_advance", reps, per_call=len(stats))
     if len(ms) != len(stats):
         raise AssertionError(f"{len(ms)} brick_advance launches profiled, {len(stats)} counted")
     print(f"brick_advance, every launch of the {label} brick frame (device ms: torch.profiler, "
@@ -1100,10 +1119,10 @@ def brick_launches(scene, inputs, rcfg, card, label):
     """brick_advance on the first round's and brick_fine on the second
     round's primary states (``inputs`` of brick_kernel_parity), with their
     bounds from the data: {kernel: (ms per launch, bound)}. brick_advance
-    works in place, so each of its raw launches (8x4 warp tiles, as the
-    frame launches it) gets a fresh copy of the state and its device time is
-    read by torch.profiler; brick_fine is timed on raw launches of fixed
-    inputs with CUDA events (no wrapper on the host between them)."""
+    works in place, so each of its raw launches gets a fresh copy of the
+    state and its device time is read by torch.profiler; brick_fine is
+    timed on raw launches of fixed inputs with CUDA events (no wrapper on
+    the host between them)."""
     from raytracing_test_tpu_torch.kernels import brick_kernels as bk
     from raytracing_test_tpu_torch.kernels import build
 
@@ -1115,10 +1134,11 @@ def brick_launches(scene, inputs, rcfg, card, label):
     fine_args, *keep_f = bk._fine_args(scene, s_fine, blin_fine, luts, rcfg.max_steps)
 
     def advance_fresh():
-        args, _ = bk._advance_args(scene, scene.brick_dist, bk.writable(s_adv), rcfg.max_steps,
-                                   rcfg.width)
+        fresh = bk.writable(s_adv)
+        args, _ = bk._advance_args(scene, scene.brick_dist, fresh, rcfg.max_steps)
         if lib.brick_advance_launch(*args) != 0:
             raise AssertionError("a timing launch of brick_advance failed")
+        del fresh  # held until the launch is queued
 
     if lib.brick_fine_launch(*fine_args) != 0:
         raise AssertionError("a timing launch of brick_fine failed")
@@ -1195,7 +1215,9 @@ def bricks_phase(dev, card, side, scene, o_full, wscene, wpos, wdir, cli):
             raise AssertionError(f"the brick mode did not launch both kernels: {launches}")
         check_png(out, 512)
 
-    # d. timing: per frame (counted), per launch (CUDA events), whole frames
+    # d. timing: per frame (counted), per launch, whole frames
+    print(f"brick kernels occupancy: {bk.occupancy()} (blocks per SM, cudaOccupancy"
+          f"MaxActiveBlocksPerMultiprocessor) | {card}")
     st = counted_brick_frame(scene, BENCH_POS, BENCH_DIR, full)
     print(f"bricks frame {side}x{side} full: rounds primary {st['rounds'][0]} shadow "
           f"{st['rounds'][1]}; glue passes primary {st['glue'][0]} shadow {st['glue'][1]}; "

@@ -28,18 +28,19 @@ such tree has (``fused_march_call``, ``_launch_fwd``, ``_launch_bwd``,
   brick_advance -- the input of the first and of the third round's
                  brick_advance launch of the primary march (the plain brick
                  path's states) of the 1024^2 bench frame and of the CLI's
-                 512^2 frame, launched as each tree's brick path launches
-                 it (in 8x4 warp tiles where its ``brick_advance`` takes
-                 ``image_w``), and the same inputs in natural order. A tree
-                 whose brick_advance works in place gets a fresh copy of the
-                 state in each call; only the kernel's device time counts.
+                 512^2 frame. A tree whose brick_advance works in place
+                 copies the state in each call; only the kernel's device
+                 time counts.
 
 The trees run in turns, forward then back (A, B, ..., B, A), so every tree
 is timed before and after every other. In each turn a kernel's time is the
 mean device time of its launches over 20 calls of its wrapper, read by
 torch.profiler in one session (window_bwd's gradient zero-fill is another
 kernel: it is timed apart, with CUDA events), beside the wrapper's own
-time per call (CUDA events, host work included).
+time per call (CUDA events, host work included). Each turn also times, with
+CUDA events around whole calls, the paths these kernels serve: the CLI's
+512^2 brick frame, the 1024^2 bench brick frame and the training
+loss+backward at 1024^2 x 24 on the bench seeds.
 
 In its first turn each tree is held to its own plain versions: every march
 output and every brick_advance output equal to the bit (fused_march_plain,
@@ -150,7 +151,7 @@ def window_cases(pkg, scene, ds, cam, dirs, dev):
 
 
 def brick_cases(scene, dev):
-    """[(name, state, table, budget, image width)]: the primary march's
+    """[(name, state, budget)]: the primary march's
     brick_advance input in the rounds of ROUNDS, from the plain brick path,
     at the 1024^2 bench view and the CLI's 512^2 view."""
     from raytracing_test_tpu_torch.app import cli
@@ -170,9 +171,43 @@ def brick_cases(scene, dev):
             s = bricks._fine_loop(scene, s, blin, rcfg, rcfg.max_steps, False, 0.0)
             if r in ROUNDS:
                 cases.append((f"{side}^2 {label} frame, round {r} ({int((~s.done).sum())} of "
-                              f"{s.cell.shape[0]} lanes live)", s, rcfg.max_steps, side))
+                              f"{s.cell.shape[0]} lanes live)", s, rcfg.max_steps))
             s = bricks._brick_loop(scene, scene.brick_dist, s, rcfg.max_steps)
     return cases
+
+
+def end_to_end_ms(scene, ds, cam, dirs, dev) -> dict:
+    """ms per call (CUDA events around whole calls, host work included) of
+    the CLI's 512^2 brick frame, the 1024^2 bench brick frame and the
+    training loss+backward at 1024^2 x 24 on the bench seeds."""
+    from raytracing_test_tpu_torch.app import cli
+    from raytracing_test_tpu_torch.config import CameraConfig, RenderConfig
+    from raytracing_test_tpu_torch.kernels import brick_kernels as bk
+    from raytracing_test_tpu_torch.kernels import fused_march as fm
+    from raytracing_test_tpu_torch.kernels import fused_window as fw
+    from raytracing_test_tpu_torch.render.camera import Camera, yaw_pitch_dir
+    from raytracing_test_tpu_torch.render.diff import DiffScene
+
+    rd = cli.build_parser().parse_args(["render"])
+    cli_cam = Camera(pos=torch.tensor(CameraConfig().pos, device=dev),
+                     dir=torch.tensor(yaw_pitch_dir(rd.yaw, rd.pitch), device=dev))
+    seed = fm.seed_depth_fused(scene, cam.pos, dirs, (SIDE, SIDE))
+
+    def step():
+        d = ds.density.detach().requires_grad_(True)
+        a = ds.albedo.detach().requires_grad_(True)
+        fw.render_window_fused(DiffScene(d, a), cam.pos, dirs, num_steps=cs.NUM_STEPS,
+                               start_t=seed, sky=False).mean().backward()
+
+    cli_cfg = RenderConfig(width=rd.width, height=rd.height)
+    bench_cfg = RenderConfig(width=SIDE, height=SIDE)
+    return {
+        f"brick frame {rd.width}^2 (CLI view)": cs.cuda_ms(
+            lambda: bk.render_image_bricks_pallas(scene, cli_cam, cli_cfg, 0.0), reps=5, warmup=1),
+        f"brick frame {SIDE}^2 (bench view)": cs.cuda_ms(
+            lambda: bk.render_image_bricks_pallas(scene, cam, bench_cfg, 0.0), reps=3, warmup=1),
+        f"train loss+backward {SIDE}^2 x {cs.NUM_STEPS}": cs.cuda_ms(step, reps=10, warmup=2),
+    }
 
 
 def digest(out) -> str:
@@ -229,23 +264,26 @@ def profiled_ms(calls) -> dict:
         for _ in range(3):
             fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _, _, fn in calls:
-            for _ in range(REPS):
-                fn()
-            torch.cuda.synchronize()
-    device = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name)
-                    for e in prof.events() if e.device_type == DeviceType.CUDA)
-    out = {}
-    for kind, kernel in KERNEL_NAMES.items():
-        us = [t for _, t, name in device if kernel in name]
-        cases = [c for c, k, _ in calls if k == kind]
-        if len(us) != REPS * len(cases):
-            raise AssertionError(f"{len(us)} launches of {kernel} profiled, expected "
-                                 f"{REPS} x {len(cases)}")
-        for j, case in enumerate(cases):
-            out[case] = sum(us[j * REPS:(j + 1) * REPS]) / REPS / 1e3
-    return out
+    for _ in range(3):  # the profiler can drop an event: a short session is made again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _, _, fn in calls:
+                for _ in range(REPS):
+                    fn()
+                torch.cuda.synchronize()
+        device = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name)
+                        for e in prof.events() if e.device_type == DeviceType.CUDA)
+        out, short = {}, []
+        for kind, kernel in KERNEL_NAMES.items():
+            us = [t for _, t, name in device if kernel in name]
+            cases = [c for c, k, _ in calls if k == kind]
+            if len(us) != REPS * len(cases):
+                short.append(f"{len(us)} launches of {kernel} profiled, expected "
+                             f"{REPS} x {len(cases)}")
+            for j, case in enumerate(cases):
+                out[case] = sum(us[j * REPS:(j + 1) * REPS]) / REPS / 1e3
+        if not short:
+            return out
+    raise AssertionError("; ".join(short))
 
 
 def worker(tree: Path, first: bool, out_path: Path) -> int:
@@ -299,8 +337,7 @@ def worker(tree: Path, first: bool, out_path: Path) -> int:
         batches[nb] = (origins[idx].contiguous(), rdirs[idx].contiguous())
     pkg = {"fm": fm, "fw": fw, "batches": batches}
     tiles = "image_w" in inspect.signature(fm.fused_march_call).parameters
-    brick_tiles = "image_w" in inspect.signature(bk.brick_advance).parameters
-    result["tiles"], result["brick_tiles"] = tiles, brick_tiles
+    result["tiles"] = tiles
     mcases, cam, dirs = march_cases(pkg, scene, dev)
     ds = diff_scene_from_grid(grid, palette_arrays(pal)[0], dev, solid_density=cs.SOLID_DENSITY)
     wcases = window_cases(pkg, scene, ds, cam, dirs, dev)
@@ -327,21 +364,19 @@ def worker(tree: Path, first: bool, out_path: Path) -> int:
                       fw._launch_bwd(*a)))
         zero = torch.zeros_like(wargs[0])
         result["zero_fill_ms"][name] = cs.cuda_ms(lambda: zero.zero_(), reps=REPS, warmup=3)
-    for name, s, budget, side in brick_cases(scene, dev):
-        want = bk.brick_advance_plain(scene, scene.brick_dist, s, budget)
-        for order, w in (("8x4 warp tiles", side if brick_tiles else 0), ("natural order", 0)):
-            case = f"brick_advance {name}, {order}"
-            kw = {"image_w": w} if w else {}
-            fn = (lambda s=s, budget=budget, kw=kw:
-                  bk.brick_advance(scene, scene.brick_dist, s, budget, **kw))
-            out = fn()
-            result["digest"][case] = digest({f: getattr(out, f) for f in cs.STATE_FIELDS})
-            if first:
-                cs.state_parity(f"  {case}", out, want)
-            calls.append((case, "brick_advance", fn))
+    for name, s, budget in brick_cases(scene, dev):
+        case = f"brick_advance {name}"
+        fn = lambda s=s, budget=budget: bk.brick_advance(scene, scene.brick_dist, s, budget)
+        out = fn()
+        result["digest"][case] = digest({f: getattr(out, f) for f in cs.STATE_FIELDS})
+        if first:
+            cs.state_parity(f"  {case}", out, bk.brick_advance_plain(scene, scene.brick_dist, s,
+                                                                     budget))
+        calls.append((case, "brick_advance", fn))
     for name, _, fn in calls:
         result["wrapper_ms"][name] = cs.cuda_ms(fn, reps=REPS, warmup=3)
     result["ms"] = profiled_ms(calls)
+    result["e2e_ms"] = end_to_end_ms(scene, ds, cam, dirs, dev)
     out_path.write_text(json.dumps(result))
     return 0
 
@@ -393,6 +428,12 @@ def main() -> int:
                   + (f"; zero-fill {z:.4f}" if z is not None else "")
                   + (f"; digest {rs[0]['digest'][case]}" if case in rs[0]["digest"] else "")
                   + f": {tree}")
+    print(f"end to end, ms per call (CUDA events, host work included; both turns) | {card}")
+    for case in runs[base][0]["e2e_ms"]:
+        print(f"  {case}:")
+        for tree, rs in runs.items():
+            ms = [r["e2e_ms"][case] for r in rs]
+            print(f"    {ms[0]:.4f} / {ms[1]:.4f}: {tree}")
     print(card)
     print(json.dumps({"card": card, "runs": runs}))
     return 0

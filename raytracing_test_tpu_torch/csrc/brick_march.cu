@@ -43,11 +43,13 @@
 //    writes nothing. Launched once per round over all N lanes, most of which
 //    are done or waiting after the first round, it moves a few bytes for
 //    each of those instead of the whole state (65 bytes in, 41 out).
-//  - Warp tiles. When the lanes are a row-major image (the wrapper passes
-//    its width), warp w advances the 8x4 pixel tile w (rt::ray_of, as the
-//    fused march): neighbouring pixels cross boxes of alike size.
-//  - The distance table is read through L1, the unified L1 / shared memory
-//    set to its largest L1 (the kernel uses no shared memory).
+//  - One lane per thread in natural order. 8x4 warp tiles of the image (as
+//    the fused march has them) raised round 1's lane efficiency but cost
+//    more in the later rounds, whose done and waiting lanes then read
+//    scattered bytes; the largest-L1 carveout changed nothing; the table
+//    staged in shared memory by persistent blocks was slower in every
+//    round. The longest lane's chain of dependent iterations (a table load,
+//    two IEEE divisions) sets the later rounds' time.
 //
 // Arithmetic: built with -fmad=false and IEEE division, every operation
 // rounds once, in the order of the PyTorch version, so DDA near-ties
@@ -133,28 +135,16 @@ RT_DEV int brick_lin(const Grid& G, int wx, int wy, int wz) {
   return ((wx >> sh) * G.by + (wy >> sh)) * G.bz + (wz >> sh);
 }
 
-// Byte lin of the distance table: through the read-only cache from global
-// memory, or (kShared) from a block's copy in shared memory.
-template <bool kShared>
-RT_DEV int table_at(const uint8_t* dist, int lin) {
-  if constexpr (kShared) {
-    return (int)dist[lin];
-  } else {
-    return (int)RT_LDG(dist + lin);
-  }
-}
-
 // The brick phase of one lane (render/bricks.py:_brick_step, repeated): runs
 // until an iteration in which the lane does not advance. Returns the number
 // of iterations in which it advanced.
-template <bool kShared = false>
 RT_DEV int advance_lane(const uint8_t* dist, const Grid& G, int y_max, int budget, Lane& r) {
   const int S[3] = {G.sx, G.sy, G.sz};
   int it = 0;
   for (; it < kBrickCap; ++it) {
     const int w[3] = {r.c[0] & 1023, r.c[1] & 1023, r.c[2] & 1023};
     const bool in_w = w[0] < G.sx && w[1] < G.sy && w[2] < G.sz;
-    const int d = in_w ? table_at<kShared>(dist, brick_lin(G, w[0], w[1], w[2])) : 1;
+    const int d = in_w ? (int)RT_LDG(dist + brick_lin(G, w[0], w[1], w[2])) : 1;
     const bool occupied = in_w && d == 0;
 
     // exit rules (moving away outside the window, sky above y_max)
@@ -191,7 +181,6 @@ RT_DEV int advance_lane(const uint8_t* dist, const Grid& G, int y_max, int budge
 // Whether advance_lane leaves a live lane as it is: its first iteration
 // finds it in an occupied brick, leaving by no exit rule. That needs the
 // cell and the step signs alone.
-template <bool kShared = false>
 RT_DEV bool stays(const State& S, const uint8_t* dist, const Grid& G, int y_max, int i) {
   const int S3[3] = {G.sx, G.sy, G.sz};
   int c[3];
@@ -203,7 +192,7 @@ RT_DEV bool stays(const State& S, const uint8_t* dist, const Grid& G, int y_max,
   }
   const int w[3] = {c[0] & 1023, c[1] & 1023, c[2] & 1023};
   if (!(w[0] < G.sx && w[1] < G.sy && w[2] < G.sz)) return false;
-  if (table_at<kShared>(dist, brick_lin(G, w[0], w[1], w[2])) != 0) return false;
+  if (RT_LDG(dist + brick_lin(G, w[0], w[1], w[2])) != 0) return false;
   bool away = false;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -217,16 +206,13 @@ RT_DEV bool stays(const State& S, const uint8_t* dist, const Grid& G, int y_max,
 // tensors): a done lane reads its done byte and returns, a lane that stays
 // reads its cell and step signs, and a lane that neither moves nor changes
 // writes nothing.
-template <bool kShared = false>
 RT_DEV void advance_in_place(const State& S, const Out& O, const uint8_t* dist, const Grid& G,
                              int y_max, int budget, int i) {
-  if (S.done[i] || stays<kShared>(S, dist, G, y_max, i)) return;
+  if (S.done[i] || stays(S, dist, G, y_max, i)) return;
   Lane r;
   load(S, i, r);
   const int mat = r.mat;
-  if (advance_lane<kShared>(dist, G, y_max, budget, r) > 0 || r.mat != mat || r.done) {
-    store(O, i, r);
-  }
+  if (advance_lane(dist, G, y_max, budget, r) > 0 || r.mat != mat || r.done) store(O, i, r);
 }
 
 RT_DEV bool mask_bit(const uint32_t w[4], int m) {
@@ -276,43 +262,12 @@ RT_DEV bool fine_lane(const uint8_t* bmat, const uint32_t hit[4], const uint32_t
 #ifdef __CUDACC__
 
 constexpr int kThreads = 128;
-constexpr int kMaxDevices = 64;
-// brick_advance's preferred share of the unified L1 / shared memory as
-// shared memory, in percent (cudaFuncAttributePreferredSharedMemoryCarveout):
-// 0 asks for the largest L1, where the distance table is read
-constexpr int kAdvanceCarveout = 0;
-// Stage the distance table in shared memory when it fits: one persistent
-// block of kStageThreads per SM
-constexpr bool kStageTable = false;
-constexpr int kStageThreads = 1024;
-constexpr int kMaxStagedTable = 227 * 1024;
 
 __global__ void __launch_bounds__(kThreads)
 brick_advance_kernel(rb::State S, rb::Out O, const uint8_t* __restrict__ dist, rb::Grid G,
-                     int y_max, int budget, int n, int width) {
-  const int i = rt::ray_of(n, width, blockIdx.x * blockDim.x + threadIdx.x);
-  if (i >= 0) rb::advance_in_place(S, O, dist, G, y_max, budget, i);
-}
-
-// brick_advance with the table_bytes-byte distance table (16-byte aligned)
-// copied into shared memory first; the blocks walk the work items.
-__global__ void __launch_bounds__(kStageThreads)
-brick_advance_staged_kernel(rb::State S, rb::Out O, const uint8_t* __restrict__ dist,
-                            int table_bytes, rb::Grid G, int y_max, int budget, int n,
-                            int width) {
-  extern __shared__ uint4 table_words[];
-  auto* table = reinterpret_cast<uint8_t*>(table_words);
-  const int words = table_bytes >> 4;
-  for (int j = threadIdx.x; j < words; j += blockDim.x) {
-    table_words[j] = __ldg(reinterpret_cast<const uint4*>(dist) + j);
-  }
-  for (int j = (words << 4) + threadIdx.x; j < table_bytes; j += blockDim.x) table[j] = dist[j];
-  __syncthreads();
-  const int items = rt::work_items(n, width);
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < items; j += gridDim.x * blockDim.x) {
-    const int i = rt::ray_of(n, width, j);
-    if (i >= 0) rb::advance_in_place<true>(S, O, table, G, y_max, budget, i);
-  }
+                     int y_max, int budget, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) rb::advance_in_place(S, O, dist, G, y_max, budget, i);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -375,55 +330,18 @@ rb::Grid grid_of(int sx, int sy, int sz, int shift) {
 
 }  // namespace
 
-// brick_advance's kernel attributes, set once per device (at its first
-// launch there), and the device's SM count; returns an error or 0.
-static int advance_setup(int* sms) {
-  static int count[kMaxDevices] = {};  // 0: not set up yet
-  int dev = 0;
-  cudaGetDevice(&dev);
-  const bool kept = dev >= 0 && dev < kMaxDevices;
-  if (kept && count[dev] > 0) {
-    *sms = count[dev];
-    return 0;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      brick_advance_kernel, cudaFuncAttributePreferredSharedMemoryCarveout, kAdvanceCarveout);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(brick_advance_staged_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxStagedTable);
-  }
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (kept && err == cudaSuccess) count[dev] = *sms;
-  return static_cast<int>(err);
-}
-
 // brick_advance in place on the march state (cell, tmax, mat, done, lt, la
-// and steps are read and written; step and abs_delta only read). width > 0:
-// the n lanes are a row-major image that wide, advanced in 8x4 warp tiles.
+// and steps are read and written; step and abs_delta only read).
 extern "C" int brick_advance_launch(
     const void* dist, int sx, int sy, int sz, int shift, int y_max, int budget,
     void* cell, void* tmax, const void* step, const void* abs_delta,
-    void* mat, void* done, void* lt, void* la, void* steps,
-    int n, int width, void* stream) {
+    void* mat, void* done, void* lt, void* la, void* steps, int n, void* stream) {
   if (n <= 0) return 0;
-  if (width < 0 || (width > 0 && n % width != 0)) return static_cast<int>(cudaErrorInvalidValue);
-  int sms = 0;
-  const int err = advance_setup(&sms);
-  if (err != 0) return err;
-  const rb::State S = state_of(cell, tmax, step, abs_delta, mat, done, lt, la, steps);
-  const rb::Out O = out_of(mat, cell, tmax, lt, la, steps, done);
-  const rb::Grid G = grid_of(sx, sy, sz, shift);
-  const auto* table = static_cast<const uint8_t*>(dist);
-  const int table_bytes = (sx >> shift) * G.by * G.bz;
-  auto st = static_cast<cudaStream_t>(stream);
-  if (kStageTable && table_bytes <= kMaxStagedTable &&
-      (reinterpret_cast<uintptr_t>(dist) & 15) == 0) {
-    brick_advance_staged_kernel<<<sms, kStageThreads, table_bytes, st>>>(
-        S, O, table, table_bytes, G, y_max, budget, n, width);
-  } else {
-    const int blocks = (rt::work_items(n, width) + kThreads - 1) / kThreads;
-    brick_advance_kernel<<<blocks, kThreads, 0, st>>>(S, O, table, G, y_max, budget, n, width);
-  }
+  const int blocks = (n + kThreads - 1) / kThreads;
+  brick_advance_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      state_of(cell, tmax, step, abs_delta, mat, done, lt, la, steps),
+      out_of(mat, cell, tmax, lt, la, steps, done),
+      static_cast<const uint8_t*>(dist), grid_of(sx, sy, sz, shift), y_max, budget, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,6 @@
 // dda.cuh: the DDA arithmetic that the march kernels share (fused_march.cu,
-// brick_march.cu): the reference's axis tie-break, the closed-form
-// crossing of an all-air box (render/fast.py:_aabb_advance_bounds), and the
-// map of a launch's threads onto the pixels of an image in 8x4 warp tiles.
+// brick_march.cu): the reference's axis tie-break and the closed-form
+// crossing of an all-air box (render/fast.py:_aabb_advance_bounds).
 //
 // Built with -fmad=false and IEEE division, every operation rounds once, in
 // the order of the PyTorch version, so DDA near-ties resolve identically.
@@ -17,11 +16,9 @@
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define RT_DEV __device__ __forceinline__
-#define RT_HD __host__ __device__ __forceinline__
 #define RT_LDG(p) __ldg(p)
 #else
 #define RT_DEV inline
-#define RT_HD inline
 #define RT_LDG(p) (*(p))
 #endif
 
@@ -29,29 +26,6 @@ namespace rt {
 
 constexpr int kBig = 1 << 20;    // "infinite" AABB bound (cells)
 constexpr int kMaxJump = 512;    // max crossings consumed per bulk advance
-// one warp's pixels when the rays are an image: kTileW x kTileH
-constexpr int kTileW = 8, kTileH = 32 / kTileW;
-
-// Work items of a launch over n rays: one per ray, or, when the rays are a
-// row-major image ``width`` wide (width > 0, n % width == 0), 32 per 8x4
-// tile of the image.
-RT_HD int work_items(int n, int width) {
-  if (width <= 0) return n;
-  const int h = n / width;
-  return ((width + kTileW - 1) / kTileW) * ((h + kTileH - 1) / kTileH) * 32;
-}
-
-// The ray of work item j, or -1 (a tile's pixel past the image's edge):
-// item j is lane j % 32 of tile j / 32, tiles row-major over the image
-// (kernels/fused_march.py:tile_order).
-RT_HD int ray_of(int n, int width, int j) {
-  if (width <= 0) return j < n ? j : -1;
-  const int tiles_x = (width + kTileW - 1) / kTileW;
-  const int w = j >> 5, l = j & 31;
-  const int x = (w % tiles_x) * kTileW + (l % kTileW);
-  const int y = (w / tiles_x) * kTileH + (l / kTileW);
-  return (x < width && y < n / width) ? y * width + x : -1;
-}
 
 RT_DEV int argmin_axis(float tx, float ty, float tz) {
   // x iff strictly smallest, else y iff y < z, else z (renderer._argmin_axis)

@@ -59,6 +59,12 @@
 
 #include "dda.cuh"
 
+#ifdef __CUDACC__
+#define RT_HD __host__ __device__ __forceinline__
+#else
+#define RT_HD inline
+#endif
+
 namespace rt {
 
 constexpr int kIterCap = 2048;   // loop guard; the step budgets end marches first
@@ -68,6 +74,8 @@ constexpr int kLiquid = 0x10;
 constexpr int kRefractive = 0x4;
 constexpr float kIorWater = 1.1f;
 constexpr float kEpsDir = 1e-12f;
+// one warp's pixels when the rays are an image: kTileW x kTileH
+constexpr int kTileW = 8, kTileH = 32 / kTileW;
 
 struct Params {
   const uint8_t* grid_enc;  // [sx, sy, sz]
@@ -86,9 +94,24 @@ struct Params {
   float *dir, *step, *seg, *lt, *cmod;
 };
 
-// Work items of a launch and the ray of work item j (dda.cuh).
-RT_HD int work_items(const Params& P) { return work_items(P.n, P.width); }
-RT_HD int ray_of(const Params& P, int j) { return ray_of(P.n, P.width, j); }
+// Work items of a launch: one per ray, or 32 per 8x4 tile of the image.
+RT_HD int work_items(const Params& P) {
+  if (P.width <= 0) return P.n;
+  const int h = P.n / P.width;
+  return ((P.width + kTileW - 1) / kTileW) * ((h + kTileH - 1) / kTileH) * 32;
+}
+
+// The ray of work item j, or -1 (a tile's pixel past the image's edge):
+// item j is lane j % 32 of tile j / 32, tiles row-major over the image
+// (kernels/fused_march.py:tile_order).
+RT_HD int ray_of(const Params& P, int j) {
+  if (P.width <= 0) return j < P.n ? j : -1;
+  const int tiles_x = (P.width + kTileW - 1) / kTileW;
+  const int w = j >> 5, l = j & 31;
+  const int x = (w % tiles_x) * kTileW + (l % kTileW);
+  const int y = (w / tiles_x) * kTileH + (l / kTileW);
+  return (x < P.width && y < P.n / P.width) ? y * P.width + x : -1;
+}
 
 RT_DEV int gather_enc(const Params& P, const uint8_t* grid, const int c[3]) {
   const int wx = c[0] & 1023, wy = c[1] & 1023, wz = c[2] & 1023;

@@ -1,6 +1,6 @@
 // fused_window.cu: the guided 24-step window render of the differentiable
-// renderer, forward and backward, one ray per thread, for NVIDIA Hopper
-// (sm_90a).
+// renderer, forward and backward, one ray per thread (two in the forward
+// below one wave of rays), for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel pair of raytracing_test_tpu/kernels/fused_window.py:
 // _fwd_kernel (:324) and _bwd_kernel (:417). The plain PyTorch version of both
@@ -46,9 +46,11 @@
 // of the default world. The arithmetic per sample is a few dozen flops and
 // one exp; the backward adds its warp reduction, which issues about as many
 // instructions again: the kernels are bound by instructions issued, not by
-// bytes. One thread per ray, rays in natural (row-major) order so a warp
-// marches neighbouring pixels through neighbouring cells and its lanes on
-// one row sit side by side.
+// bytes. Rays in natural (row-major) order so a warp marches neighbouring
+// pixels through neighbouring cells and its lanes on one row sit side by
+// side. A training batch's forward (less than one wave) waits instead on
+// its chain of row loads, longer inside a train step than back to back
+// (PERF.md).
 //
 // The backward's design for this card (each step timed against the
 // one-thread-per-ray original on the card, PERF.md): the peers of a row
@@ -70,7 +72,8 @@
 // lanes: lane k walks the DDA to its share of the samples, loads those rows
 // and takes their exponentials at once, and the lanes then composite in
 // sample order, each passing its running sums to the next with shuffles, so
-// every sum rounds as in the one-lane loop.
+// every sum rounds as in the one-lane loop. Two lanes a ray (12 loads in
+// flight each) beat one (all 24), four and eight at both batch sizes.
 //
 // Arithmetic: built with -fmad=false; every expression keeps the plain
 // version's operation order, so forward values agree to the last bits of
@@ -385,7 +388,7 @@ constexpr int kMaxDevices = 64;
 // window_fwd: the window length with an unrolled kernel (NUM_STEPS of the
 // training path), and the lanes per ray below one wave of rays
 constexpr int kFixedS = 24;
-constexpr int kSplit = 4;
+constexpr int kSplit = 2;
 static_assert(kFixedS % kSplit == 0 && 32 % kSplit == 0, "a ray's lanes share its samples evenly");
 
 template <int kS>

@@ -34,8 +34,6 @@ launch, whose fresh outputs nothing else holds.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from ..config import RenderConfig
@@ -167,11 +165,10 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _advance_args(scene: Scene, table: torch.Tensor, s: _March, budget: int, image_w: int = 0):
+def _advance_args(scene: Scene, table: torch.Tensor, s: _March, budget: int):
     """(arguments of brick_advance_launch, inputs to keep alive) for kernel A
     in place on ``s``: the fields in ADVANCE_WRITES are written, so they must
-    be contiguous already (a copy would take the writes). ``image_w`` > 0:
-    the lanes are a row-major image that wide, advanced in 8x4 warp tiles."""
+    be contiguous already (a copy would take the writes)."""
     dev = s.cell.device
     N = s.cell.shape[0]
     Sx, Sy, Sz = scene.shape3
@@ -180,11 +177,9 @@ def _advance_args(scene: Scene, table: torch.Tensor, s: _March, budget: int, ima
     for f in ADVANCE_WRITES:
         if not getattr(s, f).is_contiguous():
             raise ValueError(f"brick_advance: {f} must be contiguous, it is written in place")
-    if image_w < 0 or (image_w and N % image_w):
-        raise ValueError(f"brick_advance: {N} lanes are no image {image_w} wide")
     ins = [table] + _state_args(s, dev)
     args = ([table.data_ptr(), Sx, Sy, Sz, sh, int(scene.y_max), int(budget)]
-            + [t.data_ptr() for t in ins[1:]] + [N, int(image_w), _stream(dev)])
+            + [t.data_ptr() for t in ins[1:]] + [N, _stream(dev)])
     return args, ins
 
 
@@ -214,37 +209,34 @@ def writable(s: _March) -> _March:
                          for f in ADVANCE_WRITES})
 
 
-def _launch_advance(scene: Scene, table: torch.Tensor, s: _March, budget: int,
-                    image_w: int) -> _March:
+def _launch_advance(scene: Scene, table: torch.Tensor, s: _March, budget: int) -> _March:
     global LAUNCHES_ADVANCE
     from . import build
 
     lib = build.library("brick_march")
-    args, _ = _advance_args(scene, table, s, budget, image_w)
+    args, _ = _advance_args(scene, table, s, budget)
     _raise_on(lib.brick_advance_launch(*args), lib, "brick_advance")
     LAUNCHES_ADVANCE += 1
     return s
 
 
-def brick_advance(scene: Scene, table: torch.Tensor, s: _March, budget: int,
-                  image_w: int = 0) -> _March:
+def brick_advance(scene: Scene, table: torch.Tensor, s: _March, budget: int) -> _March:
     """Kernel A on a march state -> the advanced state; ``s`` is left as it
     is. CPU tensors run ``brick_advance_plain``; CUDA tensors launch the
     kernel in place on a copy of the fields it writes (or raise)."""
     if _device(scene, s, "brick_advance").type == "cpu":
         return brick_advance_plain(scene, table, s, budget)
-    return _launch_advance(scene, table, writable(s), budget, image_w)
+    return _launch_advance(scene, table, writable(s), budget)
 
 
-def advance_loop(scene: Scene, table: torch.Tensor, s: _March, budget: int,
-                 image_w: int = 0) -> _March:
+def advance_loop(scene: Scene, table: torch.Tensor, s: _March, budget: int) -> _March:
     """``brick_march``'s brick hook on kernel A, in place on ``s``: the
     fields it writes come from the round's last ``brick_fine`` launch
     (``fine_loop`` ends with one), fresh tensors that nothing else holds, so
     the round makes no copy. CPU tensors run ``brick_advance_plain``."""
     if _device(scene, s, "brick_advance").type == "cpu":
         return brick_advance_plain(scene, table, s, budget)
-    return _launch_advance(scene, table, s, budget, image_w)
+    return _launch_advance(scene, table, s, budget)
 
 
 def occupancy():
@@ -306,19 +298,14 @@ def fine_loop(scene: Scene, s: _March, blin, cfg: RenderConfig, budget: int, sha
 
 
 def render_rays_bricks_pallas(scene: Scene, origin, dirs, cfg: RenderConfig, start_t=None,
-                              time_s=None, image_w: int = 0):
-    """The brick path with both inner loops on the kernels -> (rgb [N,3],
-    aux). ``image_w`` > 0 says the rays are a row-major image that wide
-    (kernel A then advances 8x4 pixel tiles per warp; the results are the
-    same)."""
+                              time_s=None):
+    """The brick path with both inner loops on the kernels -> (rgb [N,3], aux)."""
     return bricks.render_rays_bricks(scene, origin, dirs, cfg, start_t=start_t, time_s=time_s,
-                                     fine_loop=fine_loop,
-                                     brick_loop=functools.partial(advance_loop, image_w=image_w))
+                                     fine_loop=fine_loop, brick_loop=advance_loop)
 
 
 def render_image_bricks_pallas(scene: Scene, camera: Camera, cfg: RenderConfig, time_s=None):
     """Full frame [H, W, 3] through the brick kernels, crosshair included."""
     dirs = ray_directions(camera, cfg.width, cfg.height, cfg.fov_degrees)
-    col, _ = render_rays_bricks_pallas(scene, camera.pos, dirs, cfg, time_s=time_s,
-                                       image_w=cfg.width)
+    col, _ = render_rays_bricks_pallas(scene, camera.pos, dirs, cfg, time_s=time_s)
     return crosshair(col.reshape(cfg.height, cfg.width, 3), cfg)

@@ -165,7 +165,7 @@ def _declare_brick_march(lib: ctypes.CDLL) -> None:
     outs = [P] * 7  # mat, cell, tmax, last_t, last_axis, steps, done
     lib.brick_advance_launch.argtypes = (
         [P] + [I] * 6  # brick_dist, sx, sy, sz, shift, y_max, budget
-        + state + [I, I, P]  # the state, written in place; n, image width; stream
+        + state + [I, P]  # the state, written in place; n; stream
     )
     lib.brick_advance_launch.restype = ctypes.c_int
     lib.brick_blocks_per_sm.argtypes = [I, P]

@@ -42,7 +42,7 @@ def tile_order(width: int, height: int) -> torch.Tensor:
     w covers the TILE_W x TILE_H pixel tile (w % tiles_x, w // tiles_x) of
     the row-major ``width`` x ``height`` image, lane l its pixel
     (l % TILE_W, l // TILE_W). Tiles past the image's right and bottom edges
-    hold no rays. The kernels compute the same map (csrc/dda.cuh:
+    hold no rays. The kernel computes the same map (csrc/fused_march.cu:
     ray_of)."""
     tiles_x = -(-width // TILE_W)
     tiles_y = -(-height // TILE_H)

@@ -356,10 +356,10 @@ class _PlainAdvanceLibrary:
     there, in place, as the kernel does."""
 
     def __init__(self, scene, base):
-        self.scene, self.base, self.widths = scene, base, []
+        self.scene, self.base, self.launches = scene, base, 0
 
     def brick_advance_launch(self, table, sx, sy, sz, shift, y_max, budget, cell, tmax, step,
-                             abs_delta, mat, done, last_t, last_axis, steps, n, width, stream):
+                             abs_delta, mat, done, last_t, last_axis, steps, n, stream):
         assert table == self.scene.brick_dist.data_ptr() and (sx, sy, sz) == self.scene.shape3
         i32, f32 = torch.int32, torch.float32
         mem = {"cell": (cell, i32, (n, 3)), "tmax": (tmax, f32, (n, 3)),
@@ -372,7 +372,7 @@ class _PlainAdvanceLibrary:
         out = tbk.brick_advance_plain(self.scene, self.scene.brick_dist, s, budget)
         for f in tbk.ADVANCE_WRITES:
             views[f].copy_(getattr(out, f))
-        self.widths.append(width)
+        self.launches += 1
         return 0
 
     def kernel_error_string(self, err):
@@ -383,9 +383,8 @@ def test_brick_advance_kernel_path_owns_its_writes(terrain_scenes, monkeypatch):
     """The wrappers' CUDA branch on a stand-in library that advances in
     place (on CPU memory): brick_advance leaves the caller's state as it
     was and returns the advanced copy; advance_loop, the brick path's hook,
-    advances the state it is given in place; each launch counts once and
-    passes the image width; a width that does not divide the lanes and a
-    field that is not contiguous are refused."""
+    advances the state it is given in place; each launch counts once; a
+    field that is not contiguous is refused."""
     _, ts = terrain_scenes
     rcfg = RenderConfig(width=16, height=12, max_steps=150, shadow_steps=40)
     s = tfast._init_state(torch.tensor(TERRAIN_VIEW[0]),
@@ -404,8 +403,8 @@ def test_brick_advance_kernel_path_owns_its_writes(terrain_scenes, monkeypatch):
     before = {f: getattr(s, f).clone() for f in tbk.ADVANCE_WRITES}
     n0 = tbk.LAUNCHES_ADVANCE
 
-    got = tbk.brick_advance(ts, ts.brick_dist, s, 150, image_w=16)
-    assert tbk.LAUNCHES_ADVANCE == n0 + 1 and lib.widths == [16]
+    got = tbk.brick_advance(ts, ts.brick_dist, s, 150)
+    assert tbk.LAUNCHES_ADVANCE == n0 + 1 == n0 + lib.launches
     for f in tbk.ADVANCE_WRITES:
         assert torch.equal(getattr(s, f), before[f]), f  # the caller's state is untouched
         assert torch.equal(getattr(got, f), getattr(want, f)), f
@@ -414,13 +413,11 @@ def test_brick_advance_kernel_path_owns_its_writes(terrain_scenes, monkeypatch):
     mine = tbk.writable(s)
     ptrs = {f: getattr(mine, f).data_ptr() for f in tbk.ADVANCE_WRITES}
     out = tbk.advance_loop(ts, ts.brick_dist, mine, 150)
-    assert tbk.LAUNCHES_ADVANCE == n0 + 2 and lib.widths == [16, 0]
+    assert tbk.LAUNCHES_ADVANCE == n0 + 2 == n0 + lib.launches
     for f in tbk.ADVANCE_WRITES:
         assert getattr(out, f).data_ptr() == ptrs[f], f  # written in place
         assert torch.equal(getattr(mine, f), getattr(want, f)), f
 
-    with pytest.raises(ValueError, match="no image 7 wide"):
-        tbk.brick_advance(ts, ts.brick_dist, s, 150, image_w=7)
     strided = s._replace(tmax=s.tmax.t().contiguous().t())
     with pytest.raises(ValueError, match="tmax must be contiguous"):
         tbk.advance_loop(ts, ts.brick_dist, strided, 150)

@@ -11,7 +11,7 @@ order) and its ``march_ray`` in each compile-time mode; the window's
 passed on as the device's shuffles pass them) and ``backward_ray`` (the
 backward's warp reduction and atomics are device-only: the host adds each
 sample's row with ``+=``); and brick_advance's in-place ``advance_in_place``
-over the same work order, with the launch function's arguments.
+on every lane, with the launch function's arguments.
 The library is built inside the tests, never at import; without g++ they
 skip.
 
@@ -185,13 +185,13 @@ extern "C" void host_window_bwd(const float* field, int sx, int sy, int sz, cons
 BRICK_HARNESS = r"""
 #include "brick_march.cu"
 
-// brick_advance_launch's work on the host, with its arguments: thread j of
-// the launch advances lane ray_of(n, width, j) in place
+// brick_advance_launch's work on the host, with its arguments: thread i of
+// the launch advances lane i in place
 extern "C" int host_brick_advance(const void* dist, int sx, int sy, int sz, int shift,
                                   int y_max, int budget, void* cell, void* tmax,
                                   const void* step, const void* abs_delta, void* mat,
                                   void* done, void* lt, void* la, void* steps, int n,
-                                  int width, void* stream) {
+                                  void* stream) {
   (void)stream;
   rb::State S{static_cast<const int32_t*>(cell), static_cast<const float*>(tmax),
               static_cast<const float*>(step), static_cast<const float*>(abs_delta),
@@ -202,10 +202,8 @@ extern "C" int host_brick_advance(const void* dist, int sx, int sy, int sz, int 
             static_cast<float*>(tmax), static_cast<float*>(lt), static_cast<int32_t*>(la),
             static_cast<int32_t*>(steps), static_cast<uint8_t*>(done)};
   rb::Grid G{sx, sy, sz, shift, sy >> shift, sz >> shift};
-  const int items = rt::work_items(n, width);
-  for (int j = 0; j < items; ++j) {
-    const int i = rt::ray_of(n, width, j);
-    if (i >= 0) rb::advance_in_place(S, O, static_cast<const uint8_t*>(dist), G, y_max, budget, i);
+  for (int i = 0; i < n; ++i) {
+    rb::advance_in_place(S, O, static_cast<const uint8_t*>(dist), G, y_max, budget, i);
   }
   return 0;
 }
@@ -235,7 +233,7 @@ def build_host_library(d, harnesses):
 def declare_brick_advance(lib):
     """The argument types of host_brick_advance: brick_advance_launch's."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.host_brick_advance.argtypes = [P] + [I] * 6 + [P] * 9 + [I, I, P]
+    lib.host_brick_advance.argtypes = [P] + [I] * 6 + [P] * 9 + [I, P]
     lib.host_brick_advance.restype = I
     lib.kernel_error_string.argtypes = [I]
     lib.kernel_error_string.restype = ctypes.c_char_p
@@ -438,19 +436,19 @@ def test_host_window_fwd_paths_match_plain_version(host_lib, window_rays, path):
 
 @pytest.fixture(scope="module")
 def brick_rounds(worlds):
-    """The water view's primary march at brick_advance's input (after the
-    round's fine phase) in rounds 1 and 3, from the plain brick path."""
+    """Each view's primary march at brick_advance's input (after the round's
+    fine phase) in rounds 1 and 3, from the plain brick path."""
     _, _, views = worlds
-    scene, pos, dirn, time_s = views["water"]
     rcfg = RenderConfig(width=W, height=H, max_steps=150, shadow_steps=40)
-    s, _, _ = fast.start_cell(scene, _state(pos, dirn))
-    states = {}
-    for r in (1, 2, 3):
-        blin = bricks.occupied_brick(scene, scene.brick_dist, s)
-        s = bricks._fine_loop(scene, s, blin, rcfg, rcfg.max_steps, False, time_s)
-        states[r] = s
-        s = bricks._brick_loop(scene, scene.brick_dist, s, rcfg.max_steps)
-    return scene, rcfg, states
+    out = {}
+    for view, (scene, pos, dirn, time_s) in views.items():
+        s, _, _ = fast.start_cell(scene, _state(pos, dirn))
+        for r in (1, 2, 3):
+            blin = bricks.occupied_brick(scene, scene.brick_dist, s)
+            s = bricks._fine_loop(scene, s, blin, rcfg, rcfg.max_steps, False, time_s)
+            out[view, r] = (scene, s)
+            s = bricks._brick_loop(scene, scene.brick_dist, s, rcfg.max_steps)
+    return rcfg, out
 
 
 def _poison_done(s):
@@ -467,7 +465,7 @@ def _poison_done(s):
     return s._replace(**out)
 
 
-def _host_advance(lib, scene, s, budget, width):
+def _host_advance(lib, scene, s, budget):
     """brick_advance's host build in place on a writable copy of ``s``."""
     got = bk.writable(s)
     Sx, Sy, Sz = scene.shape3
@@ -475,7 +473,7 @@ def _host_advance(lib, scene, s, budget, width):
         scene.brick_dist.data_ptr(), Sx, Sy, Sz, scene.brick_shift, int(scene.y_max), budget,
         got.cell.data_ptr(), got.tmax.data_ptr(), s.step.data_ptr(), s.abs_delta.data_ptr(),
         got.mat.data_ptr(), got.done.data_ptr(), got.last_t.data_ptr(),
-        got.last_axis.data_ptr(), got.steps.data_ptr(), s.cell.shape[0], width, None)
+        got.last_axis.data_ptr(), got.steps.data_ptr(), s.cell.shape[0], None)
     assert err == 0
     return got
 
@@ -499,10 +497,11 @@ def test_host_brick_advance_exit_rules(host_lib):
     s = fast._init_state(torch.zeros(3), torch.ones(n, 3), torch.ones(n))._replace(
         cell=torch.tensor(cells, dtype=torch.int32), step=torch.tensor(steps, dtype=f32),
         abs_delta=torch.tensor([[3.25, 1.25, 2.0]] * n, dtype=f32),
-        tmax=torch.tensor([[0.5, 0.75, 0.625]] * n, dtype=f32), mat=torch.full((n,), 3, dtype=torch.int32),
+        tmax=torch.tensor([[0.5, 0.75, 0.625]] * n, dtype=f32),
+        mat=torch.full((n,), 3, dtype=torch.int32),
         steps=torch.full((n,), 7, dtype=torch.int32), done=torch.zeros(n, dtype=torch.bool))
     want = bk.brick_advance_plain(scene, scene.brick_dist, s, 150)
-    got = _host_advance(host_lib, scene, s, 150, 0)
+    got = _host_advance(host_lib, scene, s, 150)
     for f in bk.ADVANCE_WRITES:
         g, w = getattr(got, f), getattr(want, f)
         if g.is_floating_point():
@@ -514,24 +513,26 @@ def test_host_brick_advance_exit_rules(host_lib):
     assert not torch.equal(want.cell[4], s.cell[4])  # back into the window
 
 
-@pytest.mark.parametrize("order", ["tiles", "natural"])
 @pytest.mark.parametrize("rnd", [1, 3])
-def test_host_brick_advance_matches_plain_version(host_lib, brick_rounds, rnd, order):
-    """brick_advance's per-lane code in place, in both work orders, against
-    brick_advance_plain to the bit on a round's input; the done lanes
-    (their fields set to sentinels) and the lanes waiting in an occupied
-    brick come back as they went in."""
-    scene, rcfg, states = brick_rounds
-    s = _poison_done(states[rnd])
+@pytest.mark.parametrize("view", ["terrain", "water"])
+def test_host_brick_advance_matches_plain_version(host_lib, brick_rounds, view, rnd):
+    """brick_advance's per-lane code in place against brick_advance_plain to
+    the bit on a round's input; the done lanes (their fields set to
+    sentinels) and the lanes waiting in an occupied brick come back as they
+    went in."""
+    rcfg, states = brick_rounds
+    scene, s = states[view, rnd]
+    s = _poison_done(s)
     n = s.cell.shape[0]
     want = bk.brick_advance_plain(scene, scene.brick_dist, s, rcfg.max_steps)
-    got = _host_advance(host_lib, scene, s, rcfg.max_steps, W if order == "tiles" else 0)
+    got = _host_advance(host_lib, scene, s, rcfg.max_steps)
     same_lane = torch.ones(n, dtype=torch.bool)
     for f in bk.ADVANCE_WRITES:
         g, w, s_in = getattr(got, f), getattr(want, f), getattr(s, f)
         if g.is_floating_point():
             g, w, s_in = (t.view(torch.int32) for t in (g, w, s_in))
-        assert torch.equal(g, w), f"{f} differs on {int((g != w).reshape(n, -1).any(1).sum())} lanes"
+        n_bad = int((g != w).reshape(n, -1).any(dim=1).sum())
+        assert torch.equal(g, w), f"{f} differs on {n_bad} lanes"
         same_lane &= (g == s_in).reshape(n, -1).all(dim=1)
     live = ~s.done
     moved = live & (want.steps != s.steps)

@@ -179,8 +179,8 @@ class _PlainForwardLibrary:
     def window_fwd_launch(self, field, sx, sy, sz, cell, tmax, istep, absd, n, S, shading,
                           sun_x, sun_y, sun_z, surf, t_end, w_sum, t_exp, stream):
         def view(ptr, ct, shape):
-            count = int(np.prod(shape))
-            return torch.from_numpy(np.ctypeslib.as_array((ct * count).from_address(ptr))).reshape(shape)
+            mem = (ct * int(np.prod(shape))).from_address(ptr)
+            return torch.from_numpy(np.ctypeslib.as_array(mem)).reshape(shape)
 
         i32, f32 = ctypes.c_int32, ctypes.c_float
         assert field == self.field.data_ptr()
