@@ -596,8 +596,9 @@ def window_bwd_diagnosis(name, card, fw, wargs, g_surf, g_tend, surf, t_end):
     window_bwd's kernel alone (into one zeroed gradient) and the gradient's
     zero-fill alone, the occupancy, the gradient row updates (one float4
     atomicAdd each) from the plain DDA, and the bounds. Returns {kernel:
-    (ms, bound ms)}, window_bwd's ms with its zero-fill, and "grad_err", the
-    largest gradient difference."""
+    (ms, bound ms)} (window_fwd's device time back to back, window_bwd's
+    CUDA-event ms with its zero-fill), and "grad_err", the largest gradient
+    difference."""
     fwd_fn, fwd_args, _ = fw._fwd_args(*wargs)
     fn, args, grad, g_tmax, g_abs, _ = fw._bwd_args(*wargs, g_surf, g_tend, surf, t_end)
 
@@ -635,7 +636,7 @@ def window_bwd_diagnosis(name, card, fw, wargs, g_surf, g_tend, surf, t_end):
           f"touched, {upd['samples_in_grid']} in-grid samples, {upd['row_updates_per_warp']} "
           f"row updates (one per warp, step and row), {upd['row_updates_per_block128']} if "
           f"summed per block of 128 | {card}")
-    return {"window_fwd": (f_ms, fb[0]), "window_bwd": (k_ms + z_ms, bb[0]), "grad_err": grad_err,
+    return {"window_fwd": (f_dev, fb[0]), "window_bwd": (k_ms + z_ms, bb[0]), "grad_err": grad_err,
             "window_fwd_device": f_dev}
 
 

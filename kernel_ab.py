@@ -37,10 +37,11 @@ is timed before and after every other. In each turn a kernel's time is the
 mean device time of its launches over 20 calls of its wrapper, read by
 torch.profiler in one session (window_bwd's gradient zero-fill is another
 kernel: it is timed apart, with CUDA events), beside the wrapper's own
-time per call (CUDA events, host work included). Each turn also times, with
-CUDA events around whole calls, the paths these kernels serve: the CLI's
-512^2 brick frame, the 1024^2 bench brick frame and the training
-loss+backward at 1024^2 x 24 on the bench seeds.
+time per call (CUDA events, host work included). Each turn also times the
+paths these kernels serve, with CUDA events around whole calls and as the
+device time of all their kernels (torch.profiler): the CLI's 512^2 brick
+frame, the 1024^2 bench brick frame and the training loss+backward at
+1024^2 x 24 on the bench seeds.
 
 In its first turn each tree is held to its own plain versions: every march
 output and every brick_advance output equal to the bit (fused_march_plain,
@@ -176,10 +177,12 @@ def brick_cases(scene, dev):
     return cases
 
 
-def end_to_end_ms(scene, ds, cam, dirs, dev) -> dict:
-    """ms per call (CUDA events around whole calls, host work included) of
-    the CLI's 512^2 brick frame, the 1024^2 bench brick frame and the
-    training loss+backward at 1024^2 x 24 on the bench seeds."""
+def end_to_end_ms(scene, ds, cam, dirs, dev, card) -> dict:
+    """{path: (ms per call, device busy ms per call)} of the CLI's 512^2
+    brick frame, the 1024^2 bench brick frame and the training
+    loss+backward at 1024^2 x 24 on the bench seeds: CUDA events around
+    whole calls (host work included), and the sum of the device time of
+    every kernel of a call (torch.profiler, 3 calls)."""
     from raytracing_test_tpu_torch.app import cli
     from raytracing_test_tpu_torch.config import CameraConfig, RenderConfig
     from raytracing_test_tpu_torch.kernels import brick_kernels as bk
@@ -201,13 +204,19 @@ def end_to_end_ms(scene, ds, cam, dirs, dev) -> dict:
 
     cli_cfg = RenderConfig(width=rd.width, height=rd.height)
     bench_cfg = RenderConfig(width=SIDE, height=SIDE)
-    return {
-        f"brick frame {rd.width}^2 (CLI view)": cs.cuda_ms(
-            lambda: bk.render_image_bricks_pallas(scene, cli_cam, cli_cfg, 0.0), reps=5, warmup=1),
-        f"brick frame {SIDE}^2 (bench view)": cs.cuda_ms(
-            lambda: bk.render_image_bricks_pallas(scene, cam, bench_cfg, 0.0), reps=3, warmup=1),
-        f"train loss+backward {SIDE}^2 x {cs.NUM_STEPS}": cs.cuda_ms(step, reps=10, warmup=2),
+    paths = {
+        f"brick frame {rd.width}^2 (CLI view)": (
+            lambda: bk.render_image_bricks_pallas(scene, cli_cam, cli_cfg, 0.0), 5),
+        f"brick frame {SIDE}^2 (bench view)": (
+            lambda: bk.render_image_bricks_pallas(scene, cam, bench_cfg, 0.0), 3),
+        f"train loss+backward {SIDE}^2 x {cs.NUM_STEPS}": (step, 10),
     }
+    out = {}
+    for name, (fn, reps) in paths.items():
+        wall = cs.cuda_ms(fn, reps=reps, warmup=1)
+        per_name = cs.profile_step(fn, card, steps=3, label=name)
+        out[name] = (wall, sum(sum(v) for v in per_name.values()) / 3 / 1e3)
+    return out
 
 
 def digest(out) -> str:
@@ -376,7 +385,7 @@ def worker(tree: Path, first: bool, out_path: Path) -> int:
     for name, _, fn in calls:
         result["wrapper_ms"][name] = cs.cuda_ms(fn, reps=REPS, warmup=3)
     result["ms"] = profiled_ms(calls)
-    result["e2e_ms"] = end_to_end_ms(scene, ds, cam, dirs, dev)
+    result["e2e_ms"] = end_to_end_ms(scene, ds, cam, dirs, dev, card)
     out_path.write_text(json.dumps(result))
     return 0
 
@@ -428,12 +437,13 @@ def main() -> int:
                   + (f"; zero-fill {z:.4f}" if z is not None else "")
                   + (f"; digest {rs[0]['digest'][case]}" if case in rs[0]["digest"] else "")
                   + f": {tree}")
-    print(f"end to end, ms per call (CUDA events, host work included; both turns) | {card}")
+    print(f"end to end, ms per call (CUDA events, host work included) and device busy ms per "
+          f"call (torch.profiler); both turns | {card}")
     for case in runs[base][0]["e2e_ms"]:
         print(f"  {case}:")
         for tree, rs in runs.items():
-            ms = [r["e2e_ms"][case] for r in rs]
-            print(f"    {ms[0]:.4f} / {ms[1]:.4f}: {tree}")
+            (w0, d0), (w1, d1) = (r["e2e_ms"][case] for r in rs)
+            print(f"    {w0:.4f} / {w1:.4f}; device busy {d0:.4f} / {d1:.4f}: {tree}")
     print(card)
     print(json.dumps({"card": card, "runs": runs}))
     return 0
