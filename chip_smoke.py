@@ -42,9 +42,9 @@ Phases (any failure raises, and the script exits non-zero):
                    shading with shadow_steps 6; gradients of mean(rgb) in
                    density, albedo, origin and dirs; the same at both train
                    batches in part e (the forward's split kernel). Contract:
-                   forward exact on every pixel (run H of PR 5 had
-                   max_abs_err 0), gradients within 1e-5 max-scaled (atomic
-                   ordering is the only difference);
+                   forward exact on every pixel (as the one-thread-per-ray
+                   kernel measured, PERF.md), gradients within 1e-5
+                   max-scaled (atomic ordering is the only difference);
                 c. train: five make_train_step_fused steps on one fixed batch
                    of 16384 rays from make_targets: finite losses, the fifth
                    below the first, one window_fwd and one window_bwd per step;
@@ -171,7 +171,7 @@ BENCH_DIR = (0.55, -0.4, 0.55)
 WATER_TIME = 1.2
 ATOL, MAX_BAD_FRAC, MIN_EQ_FRAC = 1e-5, 0.01, 0.999
 GRAD_TOL = 1e-5  # max-scaled, kernel vs plain version
-WINDOW_FWD_ERR = 0.0  # window forward vs window_plain, max_abs_err of run H (PR 5): exact
+WINDOW_FWD_ERR = 0.0  # window forward vs window_plain: exact, as the earlier kernel measured
 # prox pipeline against the exact-seed guided render (the reference's own
 # contract, tests/test_fused_window.py:608,622): rgb, and gradients max-scaled
 PROX_RGB_TOL, PROX_GRAD_TOL = 2e-3, 5e-3
@@ -400,8 +400,8 @@ def window_grads(render, ds, origin, dirs, seed, **kw):
 
 def window_parity(fw, ds, origin, dirs, seed, label):
     """Kernels vs plain version on ``label``'s rays, forward and gradients,
-    three configurations. The forward must be exact (its max_abs_err in
-    run H of PR 5, WINDOW_FWD_ERR) on every pixel. Returns (forward
+    three configurations. The forward must be exact (WINDOW_FWD_ERR) on
+    every pixel. Returns (forward
     max_abs_err, gradient max_abs_err)."""
     fwd_err = grad_err = 0.0
     for kw in (dict(sky=False), dict(sky=True), dict(sky=True, shading=True, shadow_steps=6)):
