@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port on one CUDA card: build, parity, serving
-frames, training steps, timing.
+frames, training steps, the edit session, timing.
 
     python3 chip_smoke.py
 
@@ -138,7 +138,36 @@ Phases (any failure raises, and the script exits non-zero):
                    loss+backward against the exact-seed pipeline's, and the
                    prox kernel's bound from this run's data.
 
-After phase 9 the kernels are ordered by the time they lose on the main
+ 10. edit   -- the edit session (app/session.py WorldSession, core/mirror.py)
+                on the card: a native session of the default world; 40
+                edits, each synced (8 place/delete pairs and 4 places by
+                pick, a tower of 8 blocks that raises y_max and is removed
+                again, blocks at two corners of the window, the top one
+                raising y_max to the grid's height); the session's frames
+                at the CLI's 512x512 in the modes fused, fast, progressive,
+                reference and fused with AO, and 5 frames each after a
+                place; the CLI's ``edit`` verb (place, delete, place, two
+                frames, save), ``render --ao`` in the modes fast,
+                progressive and reference, and ``probe`` at the centre
+                pixel, in-process.
+                The fused_march launch count is reset before and read after
+                these and must reach the frames that go through the kernel.
+                Then: the mirrored Scene against scene_from_grid of the
+                session's grid, every field equal to the bit (prox_enc and
+                y_max too); the 512x512 fused frames of the two Scenes at an
+                edit's view bit-equal; fast, progressive and reference
+                against fused at the CLI view within test_session_render_
+                modes' rule (<= 1% of pixels off by > 1e-6), progressive
+                bit-equal to itself on the plain march, the AO frame within
+                assert_images_close of the plain march with AO; the saved
+                world reloaded equal to the same edits in a session; the
+                departures of progressive and reference from fused at two
+                other views printed. Timing: each edit's sync (total; tree
+                rasterization, host box work, device apply apart; median and
+                max), each mode's frame, the frame after an edit, the AO
+                march alone.
+
+After phase 10 the kernels are ordered by the time they lose on the main
 paths: launches x (ms - bound) at the shape each launch has (512^2 frames,
 64^2 target views, the train batches' seeds and window pairs, the 512^2
 brick frame's launches, both prox passes); for brick_advance the 512^2
@@ -1520,6 +1549,257 @@ def prox_phase(dev, card, side, grid, pal, scene, cli):
     return entry, {"coarse": (coarse_ms, coarse_b[0]), "full": (full_ms, b[0])}
 
 
+EDIT_POS = (100.3, 84.6, 97.2)  # phase 10's camera, above the edits
+EDIT_VIEWS = [(-150.0 + 40.0 * k, 52.0 + 4.0 * (k % 3)) for k in range(8)]  # yaw, pitch
+TOWER = (120, 130)  # the column (x, z) of the tower that raises y_max
+SCENE_FIELDS = ("grid_enc", "macro", "albedo", "flags", "metadata", "brick_mat", "brick_dist",
+                "brick_dist_shadow", "prox_enc")
+
+
+def mode_rule(img, base) -> float:
+    """Share of pixels off by more than 1e-6 (tests/test_app.py
+    test_session_render_modes' rule: at most 1%)."""
+    return float((img - base).abs().gt(1e-6).any(dim=-1).float().mean())
+
+
+def scripted_edits(s):
+    """Phase 10's edits through the session, a sync after each: 8 place /
+    delete pairs and 4 places by pick from EDIT_POS; then a tower of 8 blocks
+    above y_max, removed again; then a block at each of two corners of the
+    window (the second at the top, y_max = Sy), removed again with one at
+    the origin corner. Returns the per-edit sync times [(total, rasterize,
+    boxes, apply) ms]."""
+    Sx, Sy, Sz = s.grid.shape
+
+    def look(k, yaw_off=0.0):
+        s.pos, s.yaw, s.pitch = np.asarray(EDIT_POS), EDIT_VIEWS[k][0] + yaw_off, EDIT_VIEWS[k][1]
+
+    picks = []
+    for k in range(len(EDIT_VIEWS)):
+        picks += [lambda k=k: (look(k), s.place(k)), s.delete]
+    picks += [lambda k=k: (look(k, 13.0), s.place(k + 2)) for k in range(4)]
+    times, y_maxes = [], []
+
+    def run(edits):
+        for edit in edits:
+            edit()
+            t0 = time.perf_counter()
+            n = s.sync()
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+            if n == 0:
+                raise AssertionError("an edit of phase 10 left no dirty brick")
+            r, b = s.sync_ms["rasterize"], s.sync_ms["boxes"]
+            times.append((total, r, b, total - r - b))
+            y_maxes.append(s.scene.y_max)
+
+    run(picks)
+    y0 = s.scene.y_max
+    tower = [(TOWER[0], y0 + i, TOWER[1]) for i in range(8)]
+    corners = [(Sx - 1, 5, Sz - 1), (0, Sy - 1, Sz - 1)]
+    run([lambda p=p: s.tree.put_block(p, s.hotbar[1], 6) for p in tower]
+        + [lambda p=p: s.tree.delete_block(p, 6) for p in reversed(tower)]
+        + [lambda p=p: s.tree.put_block(p, s.hotbar[2], 6) for p in corners]
+        + [lambda: s.tree.delete_block(corners[1], 6), lambda: s.tree.delete_block((0, 3, 0), 6)])
+    t = len(picks)
+    ys = (y0, y_maxes[t + 7], y_maxes[t + 15], y_maxes[t + 17], y_maxes[-1])
+    print(f"edit: {len(times)} edits, y_max {ys[0]} -> {ys[1]} (tower) -> {ys[2]} (removed) -> "
+          f"{ys[3]} (top corner) -> {ys[4]}")
+    if ys[1:] != (y0 + 8, y0, Sy, y0):
+        raise AssertionError(f"phase 10: y_max did not follow the tower and the corner: {ys}")
+    return times
+
+
+def session_cfg(s, cfg):
+    """The config ``WorldSession.render`` draws with: the looked-at block
+    highlighted, the session's clock."""
+    from dataclasses import replace
+
+    look = s.pick()
+    return replace(cfg, time=s.time, **({"looking_at": look.pos} if look.steps else {}))
+
+
+def images_bad(img, ref) -> float:
+    """tests/test_render_parity.py assert_images_close's measure: the share of
+    pixels off by more than ATOL (contract: at most MAX_BAD_FRAC)."""
+    return float((img - ref).abs().amax(dim=-1).gt(ATOL).float().mean())
+
+
+def edit_phase(dev, card, cli):
+    """Phase 10, the edit session on the card: a native WorldSession of the
+    default world, scripted edits each synced, the mirrored Scene against a
+    full rebuild, the session's render modes at the CLI's 512^2, AO, the
+    ``edit`` and ``probe`` verbs in-process. Returns its fused_march
+    launches (all of the main path) and its timings."""
+    import contextlib
+    import io
+
+    from raytracing_test_tpu_torch.app import checkpoint
+    from raytracing_test_tpu_torch.app.session import WorldSession
+    from raytracing_test_tpu_torch.config import CameraConfig, RenderConfig, WorldConfig
+    from raytracing_test_tpu_torch.core.flatten import scene_from_grid
+    from raytracing_test_tpu_torch.kernels import fused_march as fm
+    from raytracing_test_tpu_torch.render import fast, progressive, renderer
+    from raytracing_test_tpu_torch.render.camera import ray_directions
+
+    d = cli.build_parser().parse_args(["render"])
+    cfg = RenderConfig(width=d.width, height=d.height)
+    cfg_ao = RenderConfig(width=d.width, height=d.height, enable_ao=True)
+    edit_view = (np.asarray(EDIT_POS), EDIT_VIEWS[3][0] + 13.0, EDIT_VIEWS[3][1])
+    cli_view = (np.asarray(CameraConfig().pos), d.yaw, d.pitch)
+
+    # the main path, counted: session, edits, frames, the edit and probe verbs
+    reset_counts()
+    kernel_frames = 0
+    t0 = time.perf_counter()
+    s = WorldSession(WorldConfig(), device=dev)
+    torch.cuda.synchronize()
+    print(f"edit session: native world {s.grid.shape}, palette {len(s.palette)}, y_max "
+          f"{s.scene.y_max}, built in {time.perf_counter() - t0:.2f} s")
+    times = np.asarray(scripted_edits(s))
+    s.pos, s.yaw, s.pitch = edit_view
+    img_edit = s.render(cfg, highlight=False, mode="fused")
+    kernel_frames += 1
+
+    s.pos, s.yaw, s.pitch = cli_view
+    imgs, frame_ms = {}, {}
+    for mode, c, reps, launches in (("fused", cfg, 5, 1), ("fast", cfg, 3, 1),
+                                    ("progressive", cfg, 3, 2), ("reference", cfg, 2, 0),
+                                    ("fused AO", cfg_ao, 3, 1)):
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            imgs[mode] = s.render(c, mode=mode.split()[0])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            kernel_frames += launches
+        frame_ms[mode] = float(np.median(ms))
+    hcfg = session_cfg(s, cfg)
+    after = []
+    for k in range(5):
+        s.pos, s.yaw, s.pitch = np.asarray(EDIT_POS), *EDIT_VIEWS[k]
+        s.place(1)
+        t0 = time.perf_counter()
+        s.render(cfg, mode="fused")  # syncs the edit, picks, draws
+        torch.cuda.synchronize()
+        after.append((time.perf_counter() - t0) * 1e3)
+        kernel_frames += 1
+    frame_ms["fused after an edit (its sync included)"] = float(np.median(after))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b, w = (os.path.join(tmp, f) for f in ("a.png", "b.png", "w.npz"))
+        script = os.path.join(tmp, "edit.txt")
+        pose = (f"goto {EDIT_POS[0]} {EDIT_POS[1]} {EDIT_POS[2]}; "
+                f"look {EDIT_VIEWS[2][0]} {EDIT_VIEWS[2][1]}")
+        with open(script, "w") as f:
+            f.write(f"{pose}; place 2; render {a}; delete; place 3; time 0.7; render {b}; "
+                    f"save {w}\n")
+        t0 = time.perf_counter()
+        cli.main(["--device", str(dev), "edit", script])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        kernel_frames += 2
+        check_png(a, 512)
+        check_png(b, 512)
+        grid, pal = checkpoint.load_world(w)
+        for mode, launches in (("fast", 1), ("progressive", 2), ("reference", 0)):
+            png = os.path.join(tmp, f"{mode}.png")
+            cli.main(["--device", str(dev), "--ao", "render", "--mode", mode, "--out", png])
+            check_png(png, 512)
+            kernel_frames += launches
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(["--device", str(dev), "probe", "--row", "256", "--col", "256"])
+    launches = counts()["fused_march"]
+    print(f"edit main path: {len(times)} edits, {kernel_frames} frames through the kernel, cli edit "
+          f"(place, delete, place, 2 frames, save) in {cli_s:.2f} s with its world generation, "
+          f"cli render --ao in the modes fast, progressive and reference, probe; fused_march "
+          f"launches {launches} | {card}")
+    if launches < kernel_frames:
+        raise AssertionError(f"phase 10 launched fused_march {launches} times for "
+                             f"{kernel_frames} frames through the kernel")
+    probe = dict(ln.split(": ", 1) for ln in out.getvalue().splitlines())
+    if not {"color", "hit_pos", "steps", "cam_dir", "proj_pln_inter"} <= set(probe) or \
+            not np.isfinite(json.loads(probe["color"])).all():
+        raise AssertionError(f"probe: unexpected output {out.getvalue()[:500]}")
+    print(f"probe (256, 256): color {probe['color']}, hit {probe['hit']}, mat {probe['mat']}, "
+          f"steps {probe['steps']}, cell {probe['cell']}")
+
+    # checks against a rebuild, the plain versions and a second session (not counted)
+    rebuilt = scene_from_grid(s.grid, s.palette, dev)
+    bad = [f for f in SCENE_FIELDS if not torch.equal(getattr(s.scene, f), getattr(rebuilt, f))]
+    if bad or s.scene.y_max != rebuilt.y_max:
+        raise AssertionError(f"phase 10: mirrored Scene differs from a rebuild: {bad}, y_max "
+                             f"{s.scene.y_max} vs {rebuilt.y_max}")
+    s.pos, s.yaw, s.pitch = edit_view
+    from dataclasses import replace
+
+    mirrored = s.render(cfg, highlight=False, mode="fused")  # syncs the 5 places above
+    frame_rebuilt = fm.render_image_fused(scene_from_grid(s.grid, s.palette, dev), s.camera(),
+                                          replace(cfg, time=s.time))
+    if not torch.equal(mirrored, frame_rebuilt):
+        raise AssertionError("phase 10: the frame of the mirrored Scene differs from the rebuilt one")
+    edited = mode_rule(img_edit, frame_rebuilt)
+    print(f"edit: mirrored Scene equal to scene_from_grid ({', '.join(SCENE_FIELDS)}, y_max); "
+          f"the 512^2 fused frame at the edit view bit-equal between the two; the 5 later places "
+          f"changed {edited:.4f} of its pixels | {card}")
+
+    s.pos, s.yaw, s.pitch = cli_view
+    cam = s.camera()
+    base = imgs["fused"]
+    rules = {m: mode_rule(imgs[m], base) for m in ("fast", "progressive", "reference")}
+    with plain_versions():
+        prog_plain = progressive.render_image_progressive(s.scene, cam, hcfg)[0]
+    prog_err = float((imgs["progressive"] - prog_plain).abs().max())
+    ao_plain = fast.render_image_fast(s.scene, cam, replace(hcfg, enable_ao=True))
+    ao_err, ao_bad = float((imgs["fused AO"] - ao_plain).abs().max()), images_bad(
+        imgs["fused AO"], ao_plain)
+    print(f"modes at the CLI view, share of pixels off fused by > 1e-6 (rule: <= 1%): {rules}; "
+          f"progressive on the kernel vs on the plain march: max |diff| {prog_err:.3e}; AO frame "
+          f"on the kernel vs the plain march: max |diff| {ao_err:.3e}, bad {ao_bad:.4f}; AO "
+          f"changes {mode_rule(imgs['fused AO'], base):.4f} of the pixels | {card}")
+    if max(rules.values()) > MAX_BAD_FRAC or ao_bad > MAX_BAD_FRAC or prog_err != 0.0:
+        raise AssertionError(f"phase 10: modes {rules}, AO bad {ao_bad}, progressive vs plain "
+                             f"{prog_err}")
+    other = {}
+    for name, view in (("edit view", edit_view), ("bench view", (np.asarray(BENCH_POS), 45.0, 35.0))):
+        s.pos, s.yaw, s.pitch = view
+        f_img = s.render(cfg, mode="fused")
+        other[name] = {m: mode_rule(s.render(cfg, mode=m), f_img) for m in ("progressive", "reference")}
+    print(f"modes at other views, share of pixels off fused by > 1e-6 (the reference's own "
+          f"departures, PERF.md): {other}")
+
+    s2 = WorldSession(WorldConfig(), device=dev)
+    s2.pos, s2.yaw, s2.pitch = np.asarray(EDIT_POS), *EDIT_VIEWS[2]
+    for edit in (lambda: s2.place(2), s2.delete, lambda: s2.place(3)):
+        edit()
+        s2.sync()  # as the script's render and save verbs sync
+    if not (np.array_equal(grid, s2.grid) and all(
+            np.array_equal(getattr(pal, k), getattr(s2.palette, k))
+            for k in ("flags", "color", "metadata"))):
+        raise AssertionError("cli edit: the saved world differs from the same edits in a session")
+    print("cli edit: the saved world reloads equal to the same edits in a session")
+
+    # timing: the AO march alone at the CLI frame's hit points
+    _, aux = fm.render_rays_fused(s.scene, cam.pos, ray_directions(cam, d.width, d.height), hcfg)
+    ao_ms = cuda_ms(lambda: renderer._ao_march(s.scene, aux["hit_pos"], aux["normal"], cfg_ao),
+                    reps=5, warmup=1)
+    profile_step(lambda: s.render(cfg, mode="reference"), card, steps=1,
+                 label="reference frame 512^2 (the session's render)")
+    profile_step(lambda: s.render(cfg_ao, mode="fused"), card, steps=3,
+                 label="fused frame with AO 512^2 (the session's render)")
+    q = lambda col: f"median {np.median(times[:, col]):.3f} max {times[:, col].max():.3f}"  # noqa: E731
+    print(f"edit timing: per-edit sync ms ({len(times)} edits, host clock with the device "
+          f"synchronised): total {q(0)}; tree rasterization (512 get_block calls a brick) {q(1)}; "
+          f"mirror box recomputation on the host {q(2)}; device apply (one host-to-device copy, "
+          f"slice writes) {q(3)} | {card}")
+    print("edit timing: frame ms at 512x512 (host clock, sync + pick + render, median): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in frame_ms.items())
+          + f"; AO march alone {ao_ms:.3f} ms (CUDA events, {d.width * d.height} points x 20 "
+          f"rays x {cfg_ao.ao_steps} steps) | {card}")
+    return {"launches": launches, "times": times, "frame_ms": frame_ms, "ao_ms": ao_ms}
+
+
 def check_png(path, side):
     with open(path, "rb") as f:
         head = f.read(24)
@@ -1658,12 +1938,20 @@ def run(dev: torch.device, side: int) -> int:
     prox_entry, prox_passes = prox_phase(dev, card, side, grid, pal, scene, cli)
     kernels.append(prox_entry)
 
+    # 10. the edit session
+    t0 = time.perf_counter()
+    edit = edit_phase(dev, card, cli)
+    print(f"edit phase: {time.perf_counter() - t0:.1f} s")
+    kernels[0]["launches"] += edit["launches"]
+
     # where the kernels lose time on the main paths: launches x (ms - bound)
     # at the shape each launch has (the launch counts are this run's)
     views = train["march_launches"] - train["seeds"]
     w16, w8 = train["batches"][TRAIN_BATCH], train["batches"][CLI_BATCH]
     order = [
-        ("fused_march full, 512^2 render/animate frames", serve_launches,
+        ("fused_march full, 512^2 frames: render/animate and the edit session's (with "
+         "progressive's 128^2 coarse passes)",
+         serve_launches + edit["launches"],
          march_shapes[f"full {cli_cfg.width}^2 (render/animate frame)"]),
         ("fused_march materials, 64^2 target views of the fit", views,
          march_shapes["materials 64^2 (a target view of the fit)"]),

@@ -1,7 +1,12 @@
-"""Fit checkpoints as npz, in the JAX package's layout.
+"""World and fit checkpoints as npz, in the JAX package's layouts.
 
-Port of ``save_fit`` / ``load_fit`` (``raytracing_test_tpu/app/checkpoint.py:44``).
-The reference flattens ``(params, opt_state, step)`` into ``leaf_0..leaf_7``:
+Port of ``raytracing_test_tpu/app/checkpoint.py``. A world (the dense grid and
+its palette, i.e. seeds and edits) is saved by ``save_world`` (:20) and read
+by ``load_world`` (:31) in the reference's npz keys (``grid``, ``pal_flags``,
+``pal_color``, ``pal_meta``, ``meta_*``), so a world saved by either package
+loads in the other.
+
+``save_fit`` / ``load_fit`` (:44): the reference flattens ``(params, opt_state, step)`` into ``leaf_0..leaf_7``:
 density_raw, albedo_raw, the Adam count, mu (density, albedo), nu (density,
 albedo) and the step. This module writes and reads that same layout, so a
 checkpoint of either package loads in the other; the state crosses over
@@ -10,8 +15,12 @@ through ``parallel/sharding.py``'s converters.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import numpy as np
 import torch
+
+from ..core.tree import Palette
 
 from ..parallel.sharding import (
     FitParams,
@@ -19,6 +28,26 @@ from ..parallel.sharding import (
     adam_state_to_optax,
     params_from_jax,
 )
+
+
+def save_world(path: str, grid: np.ndarray, palette: Palette, meta: Optional[dict] = None) -> None:
+    np.savez_compressed(
+        path,
+        grid=grid,
+        pal_flags=palette.flags,
+        pal_color=palette.color,
+        pal_meta=palette.metadata,
+        **({f"meta_{k}": v for k, v in (meta or {}).items()}),
+    )
+
+
+def load_world(path: str) -> Tuple[np.ndarray, Palette]:
+    data = np.load(path)
+    pal = Palette(flags=data["pal_flags"], color=data["pal_color"], metadata=data["pal_meta"])
+    # rebuild the interning index
+    for i in range(1, len(pal.flags)):
+        pal._index[(int(pal.flags[i]), int(pal.color[i]), float(pal.metadata[i]))] = i
+    return data["grid"], pal
 
 
 def save_fit(path: str, params: FitParams, optimizer: torch.optim.Adam, step: int) -> None:

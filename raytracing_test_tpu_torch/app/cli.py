@@ -1,30 +1,37 @@
-"""Command-line interface of the PyTorch port: render / animate / fit.
+"""Command-line interface of the PyTorch port: render / animate / edit / fit / probe.
 
-Port of the ``render``, ``animate`` and ``fit`` verbs of
-``raytracing_test_tpu/app/cli.py`` with its arguments and defaults, plus
-``--device`` (default ``cuda``; the tests pass ``--device cpu``). Each frame
-mirrors ``WorldSession.render``: pick the looked-at block on the host tree
-(``app/picking.cast_ray``), then draw through the fused march
-(``kernels/fused_march.render_image_fused``), or with ``render --mode
-bricks`` / ``bricks-pallas`` through the brick engine
-(``kernels/brick_kernels.render_image_bricks_pallas``: its two kernels on
-the card, their plain versions on ``--device cpu``; the reference's
-XLA / Pallas split has no meaning on the card, and both names are kept so
-that a command line of the JAX package runs unchanged). ``fit`` runs
-``app/fit.fit_world``: the fused step, through ``render_rays_diff_guided``;
-``--engine '' --guided`` runs the same step.
+Port of ``raytracing_test_tpu/app/cli.py`` with its verbs, arguments and
+defaults, plus ``--device`` (default ``cuda``; the tests pass ``--device
+cpu``). ``render``, ``animate``, ``edit`` and ``probe`` run on
+``app/session.WorldSession``, as in the JAX CLI: the world is generated by
+the native C++ runtime (``--no-native``: the python tree), each frame syncs
+the edits, picks the looked-at block and draws through the mode's renderer.
+``fast``, ``fused`` (the default) and ``progressive`` march through the fused
+march kernel (``kernels/fused_march``: the CUDA kernel on the card, its
+plain version on ``--device cpu``), ``bricks`` / ``bricks-pallas`` through the
+brick kernels, ``reference`` (or ``--slow``) through the per-cell reference
+march as PyTorch operations. ``--ao`` adds hemisphere AO in every mode.
+``edit`` reads a command script (or ``-`` for stdin) with the verbs the
+reference binds to keys and mouse: look, rotate, move, goto, select, place,
+delete, pick, time, render, save. ``probe`` prints every debug channel at
+one pixel of the reference render. ``fit`` runs ``app/fit.fit_world``: the
+fused step, through ``render_rays_diff_guided``; ``--engine '' --guided``
+runs the same step.
 
     python -m raytracing_test_tpu_torch.app.cli render --out frame.png
+    python -m raytracing_test_tpu_torch.app.cli render --mode reference --ao --out ref.png
     python -m raytracing_test_tpu_torch.app.cli render --mode bricks-pallas --out frame.png
     python -m raytracing_test_tpu_torch.app.cli animate --frames 8 --out-dir anim/
+    echo "look 55 -25; place; render out.png; save w.npz" | \
+        python -m raytracing_test_tpu_torch.app.cli edit -
+    python -m raytracing_test_tpu_torch.app.cli probe --row 256 --col 256
     python -m raytracing_test_tpu_torch.app.cli fit --steps 20
     python -m raytracing_test_tpu_torch.app.cli fit --engine "" --guided --steps 20
 
-``edit`` and ``probe``, and the render modes ``fast``, ``reference``,
-``progressive``, ``spatial`` and ``handoff``, are not ported yet
-(ROADMAP.md). ``pallas`` is rejected: the JAX CLI offers it, but its
-``WorldSession.render`` has no renderer for it and raises
-``unknown render mode 'pallas'``.
+The render modes ``spatial`` and ``handoff`` (the world sharded over several
+devices) are not ported yet (ROADMAP.md, item 9). ``pallas`` is rejected: the
+JAX CLI offers it, but its ``WorldSession.render`` has no renderer for it
+and raises ``unknown render mode 'pallas'``.
 """
 
 from __future__ import annotations
@@ -32,23 +39,20 @@ from __future__ import annotations
 import argparse
 import os
 import struct
-import time
+import sys
 import zlib
-from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
-from ..config import CameraConfig, FitConfig, RenderConfig, world_for_size
-from ..core.flatten import Scene, scene_from_grid
-from ..kernels.brick_kernels import render_image_bricks_pallas
-from ..kernels.fused_march import render_image_fused
-from ..render.camera import Camera, yaw_pitch_dir
+from ..config import FitConfig, RenderConfig, world_for_size
+from ..core.flatten import scene_from_grid
+from ..utils.log import debug, set_debug_level
+from ..utils.profiling import FrameStats, sync, trace
 from ..worldgen import terrain
-from . import picking
+from .session import MULTI_DEVICE_MODES, RENDER_MODES, WorldSession
 
-RENDER_MODES = ("fused", "bricks", "bricks-pallas")
-UNPORTED_MODES = ("fast", "reference", "progressive", "spatial", "handoff")
+UNPORTED_MODES = MULTI_DEVICE_MODES  # ROADMAP.md, 'Modules to port', item 9
 NO_RENDERER_MODES = ("pallas",)  # offered by the JAX CLI, rendered by nothing there
 
 
@@ -75,61 +79,20 @@ def write_png(img: np.ndarray, path: str) -> None:
         f.write(chunk(b"IEND", b""))
 
 
-@dataclass
-class View:
-    """World, scene and camera state of a CLI run (WorldSession's render half)."""
-
-    scene: Scene
-    tree: object  # host tree for picking (core.tree.VoxelTree)
-    pos: np.ndarray
-    yaw: float
-    pitch: float
-    time: float = 0.0
-
-    def camera_dir(self) -> np.ndarray:
-        return np.asarray(yaw_pitch_dir(self.yaw, self.pitch), np.float32)
-
-    def rotate(self, yaw_delta: float, pitch_delta: float) -> None:
-        """rotateCamera parity: pitch hard-clamped, yaw wrapped."""
-        if not (-90 < self.pitch + pitch_delta < 90):
-            pitch_delta = 0.0
-        self.pitch += pitch_delta
-        self.yaw += yaw_delta
-        if self.yaw > 180:
-            self.yaw -= 360
-        if self.yaw < -180:
-            self.yaw += 360
-
-    def render(self, rcfg: RenderConfig, mode: str = "fused") -> torch.Tensor:
-        """One frame: pick for the looked-at highlight, then draw with the
-        fused march or (``bricks``, ``bricks-pallas``) the brick engine."""
-        res = picking.cast_ray(self.tree, self.pos, self.camera_dir(), 30)
-        if res.steps:
-            rcfg = replace(rcfg, looking_at=res.pos)
-        rcfg = replace(rcfg, time=self.time)
-        dev = self.scene.device
-        cam = Camera(
-            pos=torch.as_tensor(self.pos, dtype=torch.float32, device=dev),
-            dir=torch.as_tensor(self.camera_dir(), dtype=torch.float32, device=dev),
-        )
-        if mode == "fused":
-            return render_image_fused(self.scene, cam, rcfg, time_s=rcfg.time)
-        if mode in ("bricks", "bricks-pallas"):
-            return render_image_bricks_pallas(self.scene, cam, rcfg, time_s=rcfg.time)
-        raise ValueError(f"unknown render mode {mode!r}")
+def make_session(args) -> WorldSession:
+    """The JAX CLI's ``_mk_session``: the world for ``--world``, on ``--device``,
+    with the camera of ``--pos`` / ``--yaw`` / ``--pitch``."""
+    s = WorldSession(world_for_size(args.world), use_native=not args.no_native,
+                     device=args.device)
+    if args.pos:
+        s.pos = np.asarray([float(v) for v in args.pos.split(",")], np.float64)
+    s.yaw, s.pitch = args.yaw, args.pitch
+    return s
 
 
-def make_view(args) -> View:
-    wcfg = world_for_size(args.world)
-    grid, pal = terrain.gen_world_grid(wcfg)
-    tree = terrain.gen_world_tree(wcfg, grid, pal)
-    scene = scene_from_grid(grid, pal, torch.device(args.device))
-    pos = (
-        np.asarray([float(v) for v in args.pos.split(",")], np.float64)
-        if args.pos
-        else np.asarray(CameraConfig().pos, np.float64)
-    )
-    return View(scene=scene, tree=tree, pos=pos, yaw=args.yaw, pitch=args.pitch)
+def _save(img: torch.Tensor, path: str) -> None:
+    write_png(img.cpu().numpy(), path)
+    debug(1, f"wrote {path}")
 
 
 def _rcfg(args) -> RenderConfig:
@@ -142,27 +105,72 @@ def _rcfg(args) -> RenderConfig:
 
 
 def cmd_render(args) -> None:
-    v = make_view(args)
-    img = v.render(_rcfg(args), args.mode)
-    write_png(img.cpu().numpy(), args.out)
-    print(f"wrote {args.out}")
+    s = make_session(args)
+    mode = "reference" if args.slow else args.mode
+    _save(s.render(_rcfg(args), mode=mode), args.out)
 
 
 def cmd_animate(args) -> None:
-    v = make_view(args)
+    s = make_session(args)
     os.makedirs(args.out_dir, exist_ok=True)
     rcfg = _rcfg(args)
-    sync = torch.cuda.synchronize if v.scene.device.type == "cuda" else (lambda: None)
-    for i in range(args.frames):
-        v.time = i / 10.0  # drives the water surface animation
-        v.rotate(args.spin, 0.0)
-        t0 = time.perf_counter()
-        img = v.render(rcfg)
-        sync()
-        dt = time.perf_counter() - t0
-        write_png(img.cpu().numpy(), os.path.join(args.out_dir, f"frame_{i:04d}.png"))
-        print(f"frame {i}: {dt * 1e3:.1f} ms ({rcfg.width * rcfg.height / dt:.3e} rays/s, "
-              f"host clock, pick + render, {v.scene.device})")
+    stats = FrameStats()  # the reference's rolling frame average (main.cpp:221)
+    with trace(args.trace):
+        for i in range(args.frames):
+            s.time = i / 10.0  # drives the water surface animation
+            s.rotate(args.spin, 0.0)
+            stats.start()
+            img = s.render(rcfg)
+            sync(img)
+            stats.stop(rays=rcfg.width * rcfg.height)
+            _save(img, os.path.join(args.out_dir, f"frame_{i:04d}.png"))
+            debug(1, f"frame {i}: {stats.status()} (host clock, sync + pick + render, "
+                     f"{s.device})")
+
+
+def cmd_edit(args) -> None:
+    s = make_session(args)
+    rcfg = _rcfg(args)
+    if args.script == "-":
+        text = sys.stdin.read()
+    else:
+        with open(args.script) as f:
+            text = f.read()
+    for raw in text.replace(";", "\n").splitlines():
+        parts = raw.strip().split()
+        if not parts or parts[0].startswith("#"):
+            continue
+        op, rest = parts[0], parts[1:]
+        if op == "look":
+            s.yaw, s.pitch = float(rest[0]), float(rest[1])
+        elif op == "rotate":
+            s.rotate(float(rest[0]), float(rest[1]))
+        elif op == "move":
+            s.move(*(float(v) for v in rest))
+        elif op == "goto":
+            s.pos = np.asarray([float(v) for v in rest], np.float64)
+        elif op == "select":
+            s.selected = int(rest[0]) % len(s.hotbar)
+        elif op == "place":
+            pos = s.place(int(rest[0]) if rest else None)
+            debug(1, f"placed at {pos}")
+        elif op == "delete":
+            pos = s.delete()
+            debug(1, f"deleted {pos}" if pos else "nothing to delete in range")
+        elif op == "pick":
+            debug(1, f"pick: {s.pick()}")
+        elif op == "time":
+            s.time = float(rest[0])
+        elif op == "render":
+            _save(s.render(rcfg), rest[0] if rest else "frame.png")
+        elif op == "save":
+            from . import checkpoint
+
+            s.sync()
+            checkpoint.save_world(rest[0], s.grid, s.palette)
+            debug(1, f"world saved to {rest[0]}")
+        else:
+            debug(0, f"unknown edit command: {op}")
 
 
 def cmd_fit(args) -> None:
@@ -184,12 +192,23 @@ def cmd_fit(args) -> None:
     print(f"fit done: loss {losses[0]:.5f} -> {losses[-1]:.5f}")
 
 
+def cmd_probe(args) -> None:
+    from . import debug as dbg
+
+    s = make_session(args)
+    s.sync()
+    ch = dbg.render_debug(s.scene, s.camera(), _rcfg(args))
+    for k, v in dbg.probe_pixel(ch, args.row, args.col).items():
+        print(f"{k}: {v}")
+
+
 def _render_mode(value: str) -> str:
     if value in RENDER_MODES:
         return value
     if value in UNPORTED_MODES:
         raise argparse.ArgumentTypeError(
-            f"render mode {value!r} is not ported yet; see ROADMAP.md, 'Modules to port'")
+            f"render mode {value!r} shards the world over several devices and is not ported "
+            f"yet; see ROADMAP.md, 'Modules to port', item 9")
     if value in NO_RENDERER_MODES:
         raise argparse.ArgumentTypeError(
             f"render mode {value!r} has no renderer: the reference does not render this mode "
@@ -201,28 +220,38 @@ def _render_mode(value: str) -> str:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="raytracing_test_tpu_torch")
     p.add_argument("--device", default="cuda", help="torch device: cuda[:n] (default) or cpu")
+    p.add_argument("--debug-level", type=int, default=1)
     p.add_argument("--world", type=int, default=200, help="world columns per side")
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--pos", type=str, default="")
     p.add_argument("--yaw", type=float, default=45.0)
     p.add_argument("--pitch", type=float, default=25.0)  # positive pitch looks down (ref convention)
-    p.add_argument("--ao", action="store_true", help="hemisphere AO (not ported yet: raises)")
+    p.add_argument("--ao", action="store_true", help="hemisphere AO, in every render mode")
     p.add_argument("--no-shadows", action="store_true")
+    p.add_argument("--no-native", action="store_true",
+                   help="the python tree instead of the native C++ runtime")
+    p.add_argument("--slow", action="store_true", help="use the reference path")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     r = sub.add_parser("render")
     r.add_argument("--out", default="frame.png")
     r.add_argument("--mode", type=_render_mode, default="fused",
-                   help=f"render path: {', '.join(RENDER_MODES)} (bricks and bricks-pallas "
-                   "both run the brick kernels on the card)")
+                   help=f"render path: {', '.join(RENDER_MODES)} (fast, fused and progressive "
+                   "run the fused march kernel, bricks and bricks-pallas the brick kernels, "
+                   "reference PyTorch operations; see app/session.py render)")
     r.set_defaults(fn=cmd_render)
 
     a = sub.add_parser("animate")
     a.add_argument("--frames", type=int, default=8)
     a.add_argument("--spin", type=float, default=3.0)
     a.add_argument("--out-dir", default="anim")
+    a.add_argument("--trace", default=None, help="torch.profiler trace dir")
     a.set_defaults(fn=cmd_animate)
+
+    e = sub.add_parser("edit")
+    e.add_argument("script", help="command script path, or - for stdin")
+    e.set_defaults(fn=cmd_edit)
 
     f = sub.add_parser("fit")
     f.add_argument("--views", type=int, default=8)
@@ -242,11 +271,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fit face-shaded targets (matches the hard renderer's output)")
     f.add_argument("--out", default="", help="render the fit (not ported yet: raises)")
     f.set_defaults(fn=cmd_fit)
+
+    pr = sub.add_parser("probe")
+    pr.add_argument("--row", type=int, default=0)
+    pr.add_argument("--col", type=int, default=0)
+    pr.set_defaults(fn=cmd_probe)
     return p
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    set_debug_level(args.debug_level)
     args.fn(args)
 
 

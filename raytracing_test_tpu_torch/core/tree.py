@@ -24,24 +24,28 @@ Semantics parity (tetrahexa_tree.cpp):
     en-route leaves split into 64 cloned children (lines 221-247).
   - get_block returns the AIR sentinel where the occupancy bitmap bit is clear
     (lines 139-141).
+  - delete_block: the reference's deleteBlock(pos, 6) path runs off the end of its
+    stack (tetrahexa_tree.cpp:348 triggers with depth beyond unit leaves and a
+    32-bit `1 << index` at line 352 — both UB). We implement the evident intent:
+    remove the leaf at depth level-1, splitting en-route coarser leaves, clearing
+    the parent bitmap bit with 64-bit arithmetic.
 
 Bulk construction from a dense grid (``VoxelTree.from_dense``) is vectorized
 bottom-up compaction — semantically equivalent to the reference worldgen's ~2M
 serial putBlock calls (world_gen.cpp:19-40) but array-shaped. A per-voxel native
 C++ path lives in native/ for the reference-shaped allocation storm.
 
-This port's own copy of ``raytracing_test_tpu/core/tree.py``, cut to what world
-generation and picking use (``from_dense``, ``put_block``, ``get_block``,
-``Palette``); the edit session's ``delete_block`` and the ``to_dense`` /
-``traverse`` helpers wait for it (ROADMAP.md). The port imports nothing of the
-JAX package. The arithmetic is unchanged, so worlds, trees and palettes come
-out bit for bit the same (tests/test_torch_host.py).
+This port's own copy of ``raytracing_test_tpu/core/tree.py``, whole: world
+generation, picking and the edit session (``delete_block``) use it, the
+tests ``to_dense`` and ``traverse``. The port imports nothing of the JAX
+package. The arithmetic is unchanged, so worlds, trees and palettes come out
+bit for bit the same (tests/test_torch_host.py, tests/test_torch_session.py).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Set, Tuple
+from typing import Dict, Iterable, List, Optional, Set, Tuple
 
 import numpy as np
 
@@ -147,6 +151,10 @@ class VoxelTree:
     def _free_array(self, i: int) -> None:
         self._free_arrays.append(i)
 
+    @property
+    def num_nodes(self) -> int:
+        return self._n_nodes - len(self._free_nodes)
+
     # ---------------------------------------------------------------- queries
 
     def get_block(self, pos: Tuple[int, int, int]) -> Block:
@@ -169,6 +177,12 @@ class VoxelTree:
                 return AIR
             node = int(self.children[self.aux_u32[node]][idx])
         raise RuntimeError("hit max depth without finding leaf node")
+
+    def traverse(self, positions: Iterable[Tuple[int, int, int]]) -> List[Block]:
+        """Batch lookup (ref traverseTree, lines 43-111). The reference restarts
+        each query from the last common ancestor; with index pools the plain
+        per-query descent is already cheap, so this is simply a loop."""
+        return [self.get_block(p) for p in positions]
 
     # ---------------------------------------------------------------- editing
 
@@ -255,6 +269,47 @@ class VoxelTree:
                 depth += 1
         raise RuntimeError("hit max depth without finding leaf node")
 
+    def delete_block(self, pos: Tuple[int, int, int], level: int = UNIT_LEVEL) -> Block:
+        """Remove the block covering ``pos`` at ``level``; returns what was there.
+
+        Intended semantics of ref deleteBlock (tetrahexa_tree.cpp:293-359) with its
+        stack-overrun and 32-bit bitmap-shift bugs fixed (see module docstring).
+        """
+        pos = tuple(int(p) & WORLD_MASK for p in pos)
+        target = level - 1
+        size = 1 << (2 * (MAX_DEPTH - level))
+        base = tuple((p >> (2 * (MAX_DEPTH - level))) << (2 * (MAX_DEPTH - level)) for p in pos)
+        node = self.root
+        parent = -1
+        parent_idx = -1
+        depth = 0
+        while depth <= target:
+            if depth == target:
+                if parent < 0:
+                    raise ValueError("cannot delete the root region")
+                # node may be a leaf or a branch (mixed region) — both delete
+                # their whole subtree, as ref deleteChildren does (lines 348-353)
+                prev = Block(
+                    int(self.flags[node]), int(self.word[node]), float(self.aux_f32[node])
+                )
+                self._delete_children(node)
+                self._free_node(node)
+                self.word[parent] = np.uint64(self.word[parent]) & ~(
+                    _U64_1 << np.uint64(parent_idx)
+                )
+                self.children[self.aux_u32[parent]][parent_idx] = 0
+                self._mark_dirty(base, size)
+                return prev
+            idx = _digit(pos, depth)
+            if self.flags[node] & _LEAF:
+                self._split_leaf(node)  # ref lines 313-336
+            elif not (int(self.word[node]) >> idx) & 1:
+                return AIR  # nothing there (ref lines 338-341)
+            parent, parent_idx = node, idx
+            node = int(self.children[self.aux_u32[node]][idx])
+            depth += 1
+        raise RuntimeError("unreachable")
+
     # ------------------------------------------------------- bulk construction
 
     @classmethod
@@ -325,6 +380,52 @@ class VoxelTree:
                     blk,
                     level,
                 )
+
+    # ------------------------------------------------------------- direct dense
+
+    def to_dense(self, extent: int, origin: Tuple[int, int, int] = (0, 0, 0)):
+        """Rasterize the tree into dense (flags, color, metadata) arrays of shape
+        [extent]^3 — the inverse of from_dense, used by flatten.py and tests."""
+        flags = np.zeros((extent,) * 3, dtype=np.uint32)
+        color = np.full((extent,) * 3, AIR_COLOR, dtype=np.uint64)
+        meta = np.zeros((extent,) * 3, dtype=np.float32)
+        self._fill_dense(self.root, 0, (0, 0, 0), flags, color, meta, extent, origin)
+        return flags, color, meta
+
+    def _fill_dense(self, node, depth, corner, flags, color, meta, extent, origin):
+        size = 1 << (2 * (MAX_DEPTH - 1 - depth))  # region edge at this depth
+        ox, oy, oz = origin
+        x0, y0, z0 = corner
+        # clip against the window [origin, origin+extent)
+        if (
+            x0 + size <= ox or x0 >= ox + extent
+            or y0 + size <= oy or y0 >= oy + extent
+            or z0 + size <= oz or z0 >= oz + extent
+        ):
+            return
+        if self.flags[node] & _LEAF:
+            xs = slice(max(x0 - ox, 0), min(x0 + size - ox, extent))
+            ys = slice(max(y0 - oy, 0), min(y0 + size - oy, extent))
+            zs = slice(max(z0 - oz, 0), min(z0 + size - oz, extent))
+            flags[xs, ys, zs] = self.flags[node]
+            color[xs, ys, zs] = self.word[node]
+            meta[xs, ys, zs] = self.aux_f32[node]
+            return
+        child_size = size // 4
+        bitmap = int(self.word[node])
+        arr = self.children[self.aux_u32[node]]
+        for idx in range(64):
+            if (bitmap >> idx) & 1:
+                cx = idx & 0b11
+                cy = (idx >> 2) & 0b11
+                cz = (idx >> 4) & 0b11
+                self._fill_dense(
+                    int(arr[idx]),
+                    depth + 1,
+                    (x0 + cx * child_size, y0 + cy * child_size, z0 + cz * child_size),
+                    flags, color, meta, extent, origin,
+                )
+
 
 @dataclass
 class Palette:

@@ -1,8 +1,12 @@
 """Progressive refinement: a coarse depth pass seeds the full-resolution march.
 
-Port of ``seed_from_depth`` (``raytracing_test_tpu/render/progressive.py:43``),
-the step that turns a 1/factor-resolution depth image into per-ray seeds
-(the reference shaders' mid_res 8-neighbour minimum, mid_res.frag:211-217),
+Port of ``raytracing_test_tpu/render/progressive.py``: ``coarse_depth``
+(:29), ``seed_from_depth`` (:43), the step that turns a 1/factor-resolution
+depth image into per-ray seeds (the reference shaders' mid_res 8-neighbour
+minimum, mid_res.frag:211-217), and ``render_image_progressive`` (:59), the
+coarse-to-fine frame. Both of its passes march through
+``kernels/fused_march.render_rays_fused``: the CUDA kernel for CUDA tensors,
+its plain version (the reference's ``fast`` march) for CPU tensors. Also
 ``seeds_from_hits``, the window seeds of a hard march, and ``guided_seeds``,
 the coarse-then-full scheme around a given march
 (``kernels/fused_march.py:seed_depth_fused`` on the fused march).
@@ -10,9 +14,13 @@ the coarse-then-full scheme around a given march
 
 from __future__ import annotations
 
+from dataclasses import replace
+
 import torch
 
 from ..config import RenderConfig
+from ..core.flatten import Scene
+from .camera import Camera, ray_directions
 from .renderer import _f32, _norm3
 
 FAR_SEED = 1e5  # seed_from_depth's cap: every coarse neighbour of the ray saw sky
@@ -82,3 +90,31 @@ def guided_seeds(hard_render, scene, origin, dirs, margin: float, image_hw=None,
     _, aux = hard_render(scene, origin, dirs, RenderConfig(width=fw, height=fh, **kw),
                          start_t=start_t)
     return seeds_from_hits(aux, origin, margin, start_t)
+
+
+def coarse_depth(scene: Scene, camera: Camera, cfg: RenderConfig, factor: int):
+    """Render at 1/factor resolution; returns the straight-ray hit t [h, w]
+    (0 where the ray was reflected or refracted, 1e6 for sky)."""
+    from ..kernels.fused_march import render_rays_fused
+
+    h, w = cfg.height // factor, cfg.width // factor
+    ccfg = replace(cfg, width=w, height=h, enable_shadows=False, enable_ao=False)
+    dirs = ray_directions(camera, w, h, cfg.fov_degrees)
+    _, aux = render_rays_fused(scene, camera.pos, dirs, ccfg, image_w=w)
+    t = _norm3(aux["hit_pos"] - camera.pos[None, :])
+    usable = aux["hit"] & ~aux["reflected"]
+    # sky pixels seed "very far": min-of-neighbourhood keeps edges safe
+    t = torch.where(usable, t, torch.where(aux["hit"], _f32(0.0, t), _f32(1e6, t)))
+    return t.reshape(h, w)
+
+
+def render_image_progressive(scene: Scene, camera: Camera, cfg: RenderConfig, factor: int = 4,
+                             margin: float = 2.0):
+    """Coarse-to-fine frame render; returns (image [H,W,3], fine aux)."""
+    from ..kernels.fused_march import render_rays_fused
+
+    depth = coarse_depth(scene, camera, cfg, factor)
+    seeds = seed_from_depth(depth, factor, cfg.height, cfg.width, margin)
+    dirs = ray_directions(camera, cfg.width, cfg.height, cfg.fov_degrees)
+    col, aux = render_rays_fused(scene, camera.pos, dirs, cfg, start_t=seeds, image_w=cfg.width)
+    return col.reshape(cfg.height, cfg.width, 3), aux

@@ -1,11 +1,19 @@
-"""Ray helpers, the material state machine and shading, in PyTorch.
+"""The reference renderer in PyTorch: ray helpers, the material state
+machine, shading with hemisphere AO, and the per-cell reference march.
 
-Port of the subset of ``raytracing_test_tpu/render/renderer.py`` that the
-serving path needs: the DDA helpers (:58-129), the march state (:132),
-``classify`` and ``material_step`` (:149-221) and ``shade`` (:379-452).
-Every function works on [N]-shaped tensors on any device; the arithmetic is
-the reference's, operation for operation, so the CUDA kernel
-(csrc/fused_march.cu) can reproduce it with contraction off.
+Port of ``raytracing_test_tpu/render/renderer.py``: the DDA helpers
+(:58-129), the march state (:132), ``classify`` and ``material_step``
+(:149-221), ``_lookup`` (:104, over ``grid_enc``), the primary and shadow
+marches (:224, :313), the AO march (:350), ``shade`` (:379-452) and
+``render_rays`` / ``render_image`` / ``render_jit`` (:455-503). Every
+function works on [N]-shaped tensors on any device; the arithmetic is the
+reference's, operation for operation, so the CUDA kernel
+(csrc/fused_march.cu) can reproduce the parts it shares with contraction off.
+
+The reference path (``render_rays``) is PyTorch operations on the card, as
+XLA runs it in the JAX package: its ``while_loop`` marches become masked
+loops that test for a live lane every ``_ANY_EVERY`` iterations (a done lane's
+state does not change, so the result is the same with fewer host syncs).
 """
 
 from __future__ import annotations
@@ -17,8 +25,11 @@ import torch
 from ..config import RenderConfig
 from ..core.flatten import Scene
 from ..core.types import Properties
+from .camera import Camera, ray_directions
+from .hemisphere import oriented_dirs
 
 _EPS_DIR = 1e-12
+_ANY_EVERY = 8  # masked-loop iterations between tests for a live lane
 IOR_WATER = 1.1  # refractive index after the first refractive contact (frag:227)
 
 
@@ -67,6 +78,18 @@ def _onehot(ax, dtype=torch.float32):
 def _get(v, ax):
     """v[:, ax] per row."""
     return torch.gather(v, 1, ax[:, None].long())[:, 0]
+
+
+def _lookup(scene: Scene, cell):
+    """Material id at integer cells [N,3] from ``grid_enc`` (a value < 128 is
+    a material, anything else air); wraps &1023, air outside the window."""
+    Sx, Sy, Sz = scene.shape3
+    c = cell & 1023
+    inside = (c[:, 0] < Sx) & (c[:, 1] < Sy) & (c[:, 2] < Sz)
+    lin = (c[:, 0] * Sy + c[:, 1]) * Sz + c[:, 2]
+    lin = torch.where(inside, lin, torch.zeros_like(lin))
+    v = torch.take(scene.grid_enc, lin.long()).to(torch.int32)
+    return torch.where(inside & (v < 128), v, torch.zeros_like(v))
 
 
 def _sigmoid(x, scale, steep):
@@ -185,17 +208,143 @@ def material_step(s: _March, is_refl, is_refr, flags, cfg: RenderConfig, time_s=
     return dirx, stepx, absx, tmaxx, segx, last_t, cmod, ior, reflected
 
 
+def _march_loop(body, state, live, budget: int):
+    """``while i < budget and live(state).any(): state = body(state)`` with the
+    any-test every ``_ANY_EVERY`` iterations (``body`` leaves a finished lane
+    unchanged, so the extra iterations change nothing)."""
+    for i in range(budget):
+        if i % _ANY_EVERY == 0 and not bool(live(state).any()):
+            break
+        state = body(state)
+    return state
+
+
+def _primary_march(scene: Scene, origin, dirs, cfg: RenderConfig, time_s=None):
+    """The unified primary+material march loop (renderer.py:224): one voxel a
+    step, ``max_steps`` steps at most."""
+    N = dirs.shape[0]
+    f32 = dirs.dtype
+    d, step, delta, abs_delta = _build_ray(dirs)
+    cell = torch.floor(origin).to(torch.int32)[None, :].expand(N, 3)
+    origin_b = origin[None, :].expand(N, 3).to(f32)
+    tmax = _init_tmax(origin_b, cell, step, delta, abs_delta)
+    mat0 = _lookup(scene, cell)
+    flags0 = scene.flags[mat0.long()]
+
+    # camera-inside-block special cases (low_res.frag:299-307)
+    refr0 = (flags0 & int(Properties.REFRACTIVE)) > 0
+    raw0 = (mat0 != 0) & ~refr0  # solid start: flat colour, no shading
+    ior = torch.where((mat0 != 0) & refr0, _f32(IOR_WATER, dirs), _f32(1.0, dirs))
+    state = _March(
+        mat=mat0,
+        cell=cell,
+        dir=d,
+        step=step,
+        abs_delta=abs_delta,
+        tmax=tmax,
+        seg_origin=origin_b,
+        last_t=torch.zeros(N, dtype=f32, device=dirs.device),
+        last_axis=torch.zeros(N, dtype=torch.int32, device=dirs.device),
+        color_mod=torch.ones((N, 3), dtype=f32, device=dirs.device),
+        ior=ior,
+        reflected=torch.zeros(N, dtype=torch.bool, device=dirs.device),
+        done=raw0,
+        steps=torch.zeros(N, dtype=torch.int32, device=dirs.device),
+    )
+    sun = torch.tensor(cfg.sun_dir, dtype=f32, device=dirs.device)
+    sun = sun / torch.linalg.vector_norm(sun)
+
+    def body(s: _March) -> _March:
+        flags = scene.flags[s.mat.long()]
+        is_refl, is_refr, is_hit = classify(flags, s.mat, ~s.done, cfg)
+        done = s.done | is_hit
+        dirx, stepx, absx, tmaxx, segx, last_t, cmod, ior, reflected = material_step(
+            s, is_refl, is_refr, flags, cfg, time_s)
+
+        # ---- DDA step for rays still marching (nextIntersectDDA)
+        march = ~done
+        ax = _argmin_axis(tmaxx)
+        oh2 = _onehot(ax, f32)
+        t_cross = _get(tmaxx, ax)
+        tmax_n = tmaxx + oh2 * absx
+        cell_n = s.cell + (oh2 * stepx).to(torch.int32)
+        m = march[:, None]
+        cell_f = torch.where(m, cell_n, s.cell)
+        return _March(
+            mat=torch.where(march, _lookup(scene, cell_f), s.mat),
+            cell=cell_f,
+            dir=dirx,
+            step=stepx,
+            abs_delta=absx,
+            tmax=torch.where(m, tmax_n, tmaxx),
+            seg_origin=segx,
+            last_t=torch.where(march, t_cross, last_t),
+            last_axis=torch.where(march, ax, s.last_axis),
+            color_mod=cmod,
+            ior=ior,
+            reflected=reflected,
+            done=done,
+            steps=s.steps + march.to(torch.int32),
+        )
+
+    state = _march_loop(body, state, lambda s: ~s.done, cfg.max_steps)
+    return state, raw0, mat0, sun
+
+
+def _shadow_march(scene: Scene, p, cell, last_axis, step, cfg, sun, active):
+    """Sun shadow ray (low_res.frag:373-391; renderer.py:313): rebuild toward
+    the sun, exit through the hit face first, march <= ``shadow_steps`` steps
+    skipping LIQUID blocks. Returns occluded bool[N] (any non-air terminator,
+    budget-exhausted liquid included, matching frag:389)."""
+    _, sstep, sdelta, sabs = _build_ray(sun[None, :].expand(p.shape))
+    tmax = _init_tmax(p, cell, sstep, sdelta, sabs)
+    tmax = tmax - _onehot(last_axis, p.dtype) * sabs  # step out through the hit face (frag:380)
+    liquid_bit = int(Properties.LIQUID)
+
+    def body(c):
+        cell, tmax, mat, alive = c
+        ax = _argmin_axis(tmax)
+        oh2 = _onehot(ax, p.dtype)
+        m = alive[:, None]
+        cell_f = torch.where(m, cell + (oh2 * sstep).to(torch.int32), cell)
+        tmax_f = torch.where(m, tmax + oh2 * sabs, tmax)
+        mat_n = torch.where(alive, _lookup(scene, cell_f), mat)
+        fl = scene.flags[mat_n.long()]
+        alive_n = alive & ((mat_n == 0) | ((fl & liquid_bit) > 0))
+        return cell_f, tmax_f, mat_n, alive_n
+
+    mat0 = torch.zeros(p.shape[0], dtype=torch.int32, device=p.device)
+    _, _, mat, _ = _march_loop(body, (cell, tmax, mat0, active), lambda c: c[3], cfg.shadow_steps)
+    return mat != 0
+
+
+def _ao_march(scene: Scene, p, normal, cfg: RenderConfig):
+    """Hemisphere occlusion (renderer.py:350): K short rays from the hit point
+    (the reference's light_scattering pass, done properly), ``ao_steps``
+    voxel steps each. Returns the occluded fraction f32[N]."""
+    N = p.shape[0]
+    dirs = oriented_dirs(normal)  # [N, K, 3]
+    K = dirs.shape[1]
+    start = (p + normal * 1e-3).repeat_interleave(K, dim=0)  # ray i*K + k from point i
+    cell = torch.floor(start).to(torch.int32)
+    _, sstep, sdelta, sabs = _build_ray(dirs.reshape(N * K, 3))
+    tmax = _init_tmax(start, cell, sstep, sdelta, sabs)
+    hit = torch.zeros(N * K, dtype=torch.bool, device=p.device)
+    for _ in range(cfg.ao_steps):
+        oh = _onehot(_argmin_axis(tmax), p.dtype)
+        tmax = tmax + oh * sabs
+        cell = cell + (oh * sstep).to(torch.int32)
+        hit = hit | (_lookup(scene, cell) != 0)
+    return hit.reshape(N, K).to(p.dtype).mean(dim=1)
+
+
 def shade(scene: Scene, s: _March, raw0, mat0, sun, cfg: RenderConfig, shadow_fn):
-    """Post-march shading + overlays (renderer.shade, :379-452).
+    """Post-march shading + overlays (renderer.shade, :379-452), hemisphere
+    AO included (``cfg.enable_ao``), shared by every render mode.
 
     ``shadow_fn(p, cell, last_axis, step, active) -> bool[N]`` supplies the
     sun-shadow result (the fused kernel computes it in the same launch).
     """
-    if cfg.enable_ao:
-        raise NotImplementedError(
-            "enable_ao: hemisphere AO (_ao_march, render/hemisphere.py) is not "
-            "ported yet; see ROADMAP.md, 'Modules to port', item AO and hemisphere"
-        )
     f32 = torch.float32
     hit = s.mat != 0
     albedo = scene.albedo[s.mat.long()]
@@ -222,6 +371,11 @@ def shade(scene: Scene, s: _March, raw0, mat0, sun, cfg: RenderConfig, shadow_fn
     )[:, None]
     hit_col = albedo * shade_f * s.color_mod
 
+    normal = _onehot(s.last_axis, f32) * -s.step
+    if cfg.enable_ao:
+        occ = _ao_march(scene, p, normal, cfg)
+        hit_col = hit_col * (1.0 - 0.6 * occ)[:, None]
+
     sky_col = skybox(s.dir, sun) * s.color_mod
     col = torch.where(hit[:, None], hit_col, sky_col)
 
@@ -236,7 +390,6 @@ def shade(scene: Scene, s: _March, raw0, mat0, sun, cfg: RenderConfig, shadow_fn
     raw_col = scene.albedo[mat0.long()]
     col = torch.where(raw0[:, None], raw_col, col)
 
-    normal = _onehot(s.last_axis, f32) * -s.step
     aux = {
         "hit": hit,
         "mat": s.mat,
@@ -249,5 +402,41 @@ def shade(scene: Scene, s: _March, raw0, mat0, sun, cfg: RenderConfig, shadow_fn
         "ray_dir": s.dir,
         "ray_origin": s.seg_origin,
         "ray_deltas": s.abs_delta,
+        "ray_ratios_a": torch.stack(  # "Y/X, Y/Z, X/Y" (debug frame 3)
+            [s.dir[:, 1] / s.dir[:, 0], s.dir[:, 1] / s.dir[:, 2],
+             s.dir[:, 0] / s.dir[:, 1]], dim=1),
+        "ray_ratios_b": torch.stack(  # "X/Z, Z/X, Z/Y" (debug frame 4)
+            [s.dir[:, 0] / s.dir[:, 2], s.dir[:, 2] / s.dir[:, 0],
+             s.dir[:, 2] / s.dir[:, 1]], dim=1),
     }
     return col, aux
+
+
+def render_rays(scene: Scene, origin, dirs, cfg: RenderConfig, time_s=None):
+    """The reference path (single-level DDA, renderer.py:455): render
+    arbitrary rays -> (rgb [N,3], aux dict of debug channels)."""
+    f32 = torch.float32
+    origin = torch.as_tensor(origin, dtype=f32, device=scene.device)
+    dirs = torch.as_tensor(dirs, dtype=f32, device=scene.device)
+    s, raw0, mat0, sun = _primary_march(scene, origin, dirs, cfg, time_s=time_s)
+
+    def shadow_fn(p, cell, last_axis, step, active):
+        return _shadow_march(scene, p, cell, last_axis, step, cfg, sun, active)
+
+    return shade(scene, s, raw0, mat0, sun, cfg, shadow_fn)
+
+
+def render_image(scene: Scene, camera: Camera, cfg: RenderConfig, time_s=None):
+    """Full-frame reference render: [H, W, 3] float32, crosshair included."""
+    from .fast import crosshair
+
+    dirs = ray_directions(camera, cfg.width, cfg.height, cfg.fov_degrees)
+    col, _ = render_rays(scene, camera.pos, dirs, cfg, time_s=time_s)
+    return crosshair(col.reshape(cfg.height, cfg.width, 3), cfg)
+
+
+@torch.no_grad()
+def render_jit(scene: Scene, camera: Camera, cfg: RenderConfig):
+    """The reference's ``render_jit`` (a frame at ``cfg.time``). Nothing is
+    compiled: the frame runs as PyTorch operations on the scene's device."""
+    return render_image(scene, camera, cfg, time_s=cfg.time)

@@ -1,9 +1,10 @@
 """PyTorch port, end to end: the CLI's render against the JAX WorldSession.
 
-The port's ``render`` verb at --world 48, 32x32 (pick for the looked-at
-highlight on the host tree, then the fused march, which runs its plain
-version on CPU) against ``WorldSession(...).render(mode="fast")`` of the JAX
-package with the same camera. Contract: ``assert_images_close``.
+The port's ``render`` verb at --world 48, 32x32 (the port's WorldSession:
+pick for the looked-at highlight on the host tree, then the fused march,
+which runs its plain version on CPU) against ``WorldSession(...).render(
+mode="fast")`` of the JAX package with the same camera. Contract:
+``assert_images_close``.
 """
 
 import struct
@@ -45,8 +46,8 @@ def _read_png(path):
 def test_cli_render_matches_jax_session(tmp_path):
     argv = ["--device", "cpu", "--world", "48", "--width", "32", "--height", "32"]
     args = cli.build_parser().parse_args(argv + ["render"])
-    view = cli.make_view(args)
-    got = view.render(cli._rcfg(args)).numpy()
+    session = cli.make_session(args)
+    got = session.render(cli._rcfg(args)).numpy()
 
     s = WorldSession(world_for_size(48), use_native=False)
     s.yaw, s.pitch = args.yaw, args.pitch

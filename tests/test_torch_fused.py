@@ -120,9 +120,13 @@ def test_build_raises_without_nvcc_and_caches_nothing(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
-def test_port_never_imports_jax():
-    """Importing every port module and chip_smoke.py, then rendering through the
-    CLI, loads neither JAX nor any module of the JAX package."""
+def test_port_never_imports_jax(tmp_path):
+    """Importing every port module and chip_smoke.py, then rendering and
+    editing through the CLI, loads neither JAX nor any module of the JAX
+    package."""
+    script = tmp_path / "edit.txt"
+    script.write_text(f"look 55 -25; place; delete; render {tmp_path / 'e.png'}; "
+                      f"save {tmp_path / 'w.npz'}\n")
     code = (
         "import importlib, os, pkgutil, sys\n"
         "import raytracing_test_tpu_torch as p\n"
@@ -132,6 +136,9 @@ def test_port_never_imports_jax():
         "from raytracing_test_tpu_torch.app import cli\n"
         "cli.main(['--device', 'cpu', '--world', '16', '--width', '8', '--height', '8',\n"
         "          'render', '--out', os.devnull])\n"
+        "cli.main(['--device', 'cpu', '--world', '16', '--width', '8', '--height', '8',\n"
+        f"          'edit', {str(script)!r}])\n"
+        f"assert os.path.exists({str(tmp_path / 'w.npz')!r})\n"
         "assert len(mods) >= 20, mods\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', 'raytracing_test_tpu')\n"
         "             or k.startswith(('jax.', 'raytracing_test_tpu.')))\n"
