@@ -180,8 +180,7 @@ class SceneMirror:
         now updated: the previous Scene object aliases the new one."""
         sc = self.scene
         flat = [a.reshape(-1) for _, _, a in boxes]
-        host = torch.from_numpy(np.concatenate(flat)) if flat else torch.zeros(0, dtype=torch.uint8)
-        dev = host.to(self.device)
+        dev = torch.from_numpy(np.concatenate(flat)).to(self.device)
         pos = 0
         for (name, start, arr), f in zip(boxes, flat):
             src = dev[pos: pos + f.size].view(arr.shape)
