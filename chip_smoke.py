@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port on one CUDA card: build, parity, serving
-frames, training steps, the edit session, timing.
+frames, training steps, the edit session, the differentiable renders, timing.
 
     python3 chip_smoke.py
 
@@ -48,7 +48,7 @@ Phases (any failure raises, and the script exits non-zero):
                 c. train: five make_train_step_fused steps on one fixed batch
                    of 16384 rays from make_targets: finite losses, the fifth
                    below the first, one window_fwd and one window_bwd per step;
-                d. cli: ``fit --steps 10`` at its defaults, in-process,
+                d. cli: ``fit --engine fused --steps 10``, in-process,
                    and the time of a guide rebuild (the fit's re-threshold)
                    with the share of the brick fields it now builds;
                 e. timing: seed, window_fwd, window_bwd, the whole
@@ -167,7 +167,50 @@ Phases (any failure raises, and the script exits non-zero):
                 max), each mode's frame, the frame after an edit, the AO
                 march alone.
 
-After phase 10 the kernels are ordered by the time they lose on the main
+ 11. diff   -- the differentiable renders that are PyTorch operations here, as
+                they are XLA operations in the reference (render/diff.py), on
+                the default world:
+                a. hard limit: the blind scan (render_rays_diff, solid density
+                   1e4, 192 steps) at the CLI's 512x512 view against the lean
+                   fused march's first-hit albedo on the rays whose hit lies
+                   within the scan's steps, and the skybox on the sky rays:
+                   <= 1% of them off by more than 1e-4;
+                b. card vs CPU: the blind scan (96 steps, sky off, solid
+                   density 50) on one fixed 8192-ray batch of the fit's rays on
+                   the card and on the CPU: rgb within 1e-5, the train loss's
+                   gradients in density and albedo within 1e-5 and in origin
+                   and dirs within 1e-4 max-scaled; the card's results stay on
+                   the card;
+                c. the window kernel pair against render_rays_diff_window
+                   (accum="scatter", the XLA-style window) at both train
+                   batches and at 1024x1024 x 24 from the bench camera (one
+                   origin a ray), sky off, sky on, shading with shadow_steps
+                   6: at most 1% near-tie rays (off by more than 1e-5: the
+                   soft shadow's transmittance is steep in its start point,
+                   which the two sum in other orders; or with an exact
+                   crossing tie, whose dt gradient the reference splits and
+                   the kernels pass whole), and on the other rays rgb and
+                   the gradients of their mean within 1e-5 max-scaled (ray
+                   gradients non-finite on the same entries, as in 7b);
+                d. train: five make_train_step steps (the unguided step: blind
+                   scan, MSE, Adam) on the batch of b, finite losses, the fifth
+                   below the first; then ``fit --engine '' --steps 5 --out``
+                   through the CLI in-process, its PNG checked, with every
+                   launch count reset just before: fused_march launched once
+                   per target view, nothing else;
+                e. ao_diff at the hit points of the CLI's 512x512 frame:
+                   occlusion finite and in [0, 1], a finite non-zero density
+                   gradient;
+                f. timing: the unguided step (ms, rays/s, peak memory) at 8192
+                   and 16384 rays x 96 steps; its loss+backward with remat on
+                   and off in turns, and with autograd's own row gather (a
+                   zero [V, 4] gradient per step) in place of the scan's one
+                   gradient buffer; render_image_diff at 512x512 x 192 steps
+                   (fit --out); ao_diff forward and forward+backward; the
+                   window's loss+backward on the kernel pair and on
+                   render_rays_diff_window at the train batches.
+
+After phase 11 the kernels are ordered by the time they lose on the main
 paths: launches x (ms - bound) at the shape each launch has (512^2 frames,
 64^2 target views, the train batches' seeds and window pairs, the 512^2
 brick frame's launches, both prox passes); for brick_advance the 512^2
@@ -414,15 +457,19 @@ def window_row_updates(cell, tmax, istep, abs_delta, shape3) -> dict:
     return out
 
 
-def window_grads(render, ds, origin, dirs, seed, **kw):
-    """rgb and the gradients of mean(rgb) in density, albedo, origin and dirs."""
+def window_grads(render, ds, origin, dirs, seed, keep=None, **kw):
+    """rgb and the gradients of mean(rgb) in density, albedo, origin and dirs
+    (with ``keep``, of the mean over all rays of rgb on the kept rays)."""
     from raytracing_test_tpu_torch.render.diff import DiffScene
 
     leaves = [t.detach().clone().requires_grad_(True)
               for t in (ds.density, ds.albedo, origin, dirs)]
     rgb = render(DiffScene(leaves[0], leaves[1]), leaves[2], leaves[3],
                  num_steps=NUM_STEPS, start_t=seed, **kw)
-    rgb.mean().backward()
+    if keep is None:
+        rgb.mean().backward()
+    else:
+        (rgb * keep[:, None]).sum().div(rgb.numel()).backward()
     torch.cuda.synchronize()
     return [rgb.detach()] + [t.grad for t in leaves]
 
@@ -720,7 +767,7 @@ def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
 
     # d. the fit verb at its defaults
     t0 = time.perf_counter()
-    cli.main(["--device", str(dev), "fit", "--steps", "10"])
+    cli.main(["--device", str(dev), "fit", "--engine", "fused", "--steps", "10"])
     torch.cuda.synchronize()
     counts = {"window_fwd": fw.LAUNCHES_FWD, "window_bwd": fw.LAUNCHES_BWD}
     march_launches = fm.LAUNCHES
@@ -1800,6 +1847,295 @@ def edit_phase(dev, card, cli):
     return {"launches": launches, "times": times, "frame_ms": frame_ms, "ao_ms": ao_ms}
 
 
+DIFF_STEPS = 96  # the unguided fit's blind scan (app/fit.py, as the reference's)
+IMAGE_STEPS = 192  # render_image_diff's default (fit --out)
+HARD_ATOL = 1e-4  # hard-limit contract (tests/test_diff.py:27)
+RAY_GRAD_TOL = 1e-4  # max-scaled, ray gradients card vs CPU (tests/test_torch_diff.py)
+
+
+def scaled_err(a, b) -> float:
+    """max |a - b| over max |b|: 0 for two empty or all-zero tensors, inf
+    where b is all zero and a is not, NaN where a is."""
+    if b.numel() == 0:
+        return 0.0
+    err, den = float((a - b).abs().max()), float(b.abs().max())
+    return err / den if den > 0 else (0.0 if err == 0 else float("inf"))
+
+
+def blind_grads(ds, origin, dirs, targets, **kw):
+    """rgb of the blind scan (``DIFF_STEPS``, sky off) and the gradients of
+    the train loss, mean((rgb - targets)^2), in density, albedo, origin and
+    dirs, on the device of ``ds``."""
+    from raytracing_test_tpu_torch.render.diff import DiffScene, render_rays_diff
+
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (ds.density, ds.albedo, origin, dirs)]
+    rgb = render_rays_diff(DiffScene(leaves[0], leaves[1]), leaves[2], leaves[3],
+                           num_steps=DIFF_STEPS, sky=False, **kw)
+    torch.mean((rgb - targets) ** 2).backward()
+    return [rgb.detach()] + [t.grad for t in leaves]
+
+
+def peak_ms(fn, reps: int):
+    """(ms per call, peak device bytes a call adds to what was allocated
+    before it) of ``fn``, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = cuda_ms(fn, reps=reps, warmup=0)
+    return ms, torch.cuda.max_memory_allocated() - base
+
+
+def diff_phase(dev, card, grid, pal, scene, cli):
+    """Phase 11, the differentiable renders as PyTorch operations on the card:
+    the blind scan's hard limit, the blind scan against itself on the CPU,
+    the window kernel pair against the XLA-style window, the unguided train
+    step and ``fit --engine '' --out`` through the CLI, ``ao_diff``, and their
+    timings. Returns the fused_march launches of its main path (the fit
+    verb's target views)."""
+    from functools import partial
+
+    from raytracing_test_tpu_torch.app import fit
+    from raytracing_test_tpu_torch.config import CameraConfig, RenderConfig, WorldConfig
+    from raytracing_test_tpu_torch.core.flatten import palette_arrays
+    from raytracing_test_tpu_torch.kernels import fused_march as fm
+    from raytracing_test_tpu_torch.kernels import fused_window as fw
+    from raytracing_test_tpu_torch.parallel import sharding
+    from raytracing_test_tpu_torch.render import diff, progressive
+    from raytracing_test_tpu_torch.render.camera import Camera, camera_from_yaw_pitch, ray_directions
+    from raytracing_test_tpu_torch.render.fast import sun_unit
+    from raytracing_test_tpu_torch.render.renderer import _build_ray, skybox
+
+    albedo = palette_arrays(pal)[0]
+    shape3 = tuple(WorldConfig().grid_shape)
+    d = cli.build_parser().parse_args(["fit"])
+    side_cli = d.width
+    cam = camera_from_yaw_pitch(CameraConfig().pos, d.yaw, d.pitch, dev)
+    dirs_cli = ray_directions(cam, d.width, d.height)
+
+    # a. the hard limit at the CLI's view: solid density 1e4, 192 steps,
+    # against the lean fused march's first hit on the rays whose hit lies
+    # within the scan's steps (its cells are the start cell's L1 neighbours)
+    hard = diff.diff_scene_from_grid(grid, albedo, dev)
+    with torch.no_grad():
+        vol = diff.render_rays_diff(hard, cam.pos, dirs_cli, num_steps=IMAGE_STEPS)
+    lean = RenderConfig(width=d.width, height=d.height, enable_materials=False,
+                        enable_shadows=False)
+    _, aux = fm.render_rays_fused(scene, cam.pos, dirs_cli, lean)
+    start = torch.floor(cam.pos).to(torch.int32)
+    reach = (aux["cell"] - start[None, :]).abs().sum(dim=1) < IMAGE_STEPS
+    hit = aux["hit"]
+    sel = ~hit | reach
+    want = torch.where(hit[:, None], torch.from_numpy(albedo).to(dev)[aux["mat"].long()],
+                       skybox(_build_ray(dirs_cli)[0],
+                              torch.from_numpy(sun_unit(lean.sun_dir)).to(dev)))
+    err = (vol - want).abs().amax(dim=1)[sel]
+    bad = float(err.gt(HARD_ATOL).float().mean())
+    print(f"diff hard limit {d.width}x{d.height} x {IMAGE_STEPS} steps: {int((hit & reach).sum())} "
+          f"hits within the steps, {int((~hit).sum())} sky rays, {int((hit & ~reach).sum())} hits "
+          f"beyond them (not compared); off by > {HARD_ATOL}: {bad:.6f} of the compared rays "
+          f"(max {float(err.max()):.3e})")
+    if not torch.isfinite(vol).all() or bad > MAX_BAD_FRAC or int((hit & reach).sum()) == 0:
+        raise AssertionError(f"diff hard limit: {bad} of rays off the first-hit albedo")
+
+    # b. the blind scan on the card against the same code on the CPU, one
+    # fixed batch of the fit's rays at the CLI batch
+    g = WorldConfig().grid_shape
+    cams = fit.ring_cameras((g[0] / 2, g[1] / 3, g[2] / 2), 0.8 * g[0], 0.9 * g[1], d.views,
+                            device=dev)
+    origins, rdirs, targets = fit.make_targets(scene, cams, d.fit_res)
+    idx = torch.from_numpy(np.random.default_rng(2).integers(0, origins.shape[0], CLI_BATCH)).to(dev)
+    batch = (origins[idx].contiguous(), rdirs[idx].contiguous(), targets[idx].contiguous())
+    ds = diff.diff_scene_from_grid(grid, albedo, dev, solid_density=SOLID_DENSITY)
+    k = blind_grads(ds, *batch)
+    torch.cuda.synchronize()
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    p = blind_grads(diff.DiffScene(cpu(ds.density), cpu(ds.albedo)), *(cpu(t) for t in batch))
+    if any(t.device != dev for t in k):
+        raise AssertionError("diff: the blind scan on the card's tensors left the card")
+    rgb_err = float((cpu(k[0]) - p[0]).abs().max())
+    scaled = {name: scaled_err(cpu(a), b) for name, a, b in
+              zip(("density", "albedo", "origin", "dirs"), k[1:], p[1:])}
+    print(f"diff blind scan card vs CPU, {CLI_BATCH} rays x {DIFF_STEPS} steps: rgb max_abs_err "
+          f"{rgb_err:.3e}; gradients max-scaled " + " ".join(f"{n} {v:.3e}" for n, v in scaled.items()))
+    if (not rgb_err <= ATOL or not all(scaled[n] <= GRAD_TOL for n in ("density", "albedo"))
+            or not all(scaled[n] <= RAY_GRAD_TOL for n in ("origin", "dirs"))
+            or not all(torch.isfinite(t).all() for t in k)):
+        raise AssertionError(f"diff: blind scan card vs CPU beyond ({ATOL}, {GRAD_TOL}, "
+                             f"{RAY_GRAD_TOL}): rgb {rgb_err}, {scaled}")
+
+    # c. the window kernel pair against the XLA-style window at both train
+    # batches (guided seeds on the fit's rays) and at 1024^2 (bench seeds)
+    xla = partial(diff.render_rays_diff_window, accum="scatter")
+    bench = Camera(pos=torch.tensor(BENCH_POS, device=dev), dir=torch.tensor(BENCH_DIR, device=dev))
+    bench_dirs = ray_directions(bench, FULL, FULL)
+    views = [(f"{FULL}^2", bench.pos, bench_dirs,
+              fm.seed_depth_fused(scene, bench.pos, bench_dirs, (FULL, FULL)))]
+    rng = np.random.default_rng(3)
+    for nb in (TRAIN_BATCH, CLI_BATCH):
+        i = torch.from_numpy(rng.integers(0, origins.shape[0], nb)).to(dev)
+        o_b, d_b = origins[i].contiguous(), rdirs[i].contiguous()
+        views.append((f"{nb} rays", o_b, d_b,
+                      progressive.guided_seeds(fm.render_rays_fused, scene, o_b, d_b, 3.0)))
+    for label, o, dd, sd in views:
+        # one origin a ray: a ray's own origin gradient, not a sum over the view
+        o = o.expand(dd.shape).contiguous() if o.ndim == 1 else o
+        with torch.no_grad():
+            _, _, cell, tmax, step, absd = diff._ray_start(shape3, o, dd, sd, park_misses=True)
+            _, inside, dt, _ = diff._enumerate_window(shape3, None, None, step, absd, cell, tmax,
+                                                      NUM_STEPS)
+            ties = ((dt == 0) & inside).any(dim=1) & (sd < diff.MISS_SEED_MIN)
+        for kw in (dict(sky=False), dict(sky=True), dict(sky=True, shading=True, shadow_steps=6)):
+            # near-tie rays are held to the image budget and left out of the
+            # gradients: rays off by more than ATOL (the soft shadow starts at
+            # hit point + 0.75 sun, the two sum the hit point in other orders,
+            # and the shadow's transmittance is steep in it), and rays with an
+            # exact crossing tie (a zero-length segment in the grid, whose dt
+            # gradient the reference splits at the max(dt, 0) and the kernels
+            # pass whole)
+            with torch.no_grad():
+                fa = fw.render_window_fused(ds, o, dd, num_steps=NUM_STEPS, start_t=sd, **kw)
+                fb = xla(ds, o, dd, num_steps=NUM_STEPS, start_t=sd, **kw)
+            keep = ((fa - fb).abs().amax(dim=1) <= ATOL) & ~ties
+            off = 1.0 - float(keep.float().mean())
+            a = window_grads(fw.render_window_fused, ds, o, dd, sd, keep=keep, **kw)
+            b = window_grads(xla, ds, o, dd, sd, keep=keep, **kw)
+            errs = {"rgb": scaled_err(a[0][keep], b[0][keep])}
+            for name, x, y in zip(("density", "albedo", "origin", "dirs"), a[1:], b[1:]):
+                m = torch.isfinite(y)
+                if not torch.equal(torch.isfinite(x), m):
+                    raise AssertionError(f"window vs XLA window {label} {kw}: {name} gradient "
+                                         "finite on other entries")
+                errs[name] = scaled_err(x[m], y[m])
+            print(f"window pair vs render_rays_diff_window(accum='scatter') {label} {kw}: near-tie "
+                  f"rays {off:.6f} ({int(ties.sum())} with a crossing tie; max "
+                  f"|rgb diff| {float((fa - fb).abs().max()):.3e}); on the others max-scaled "
+                  + " ".join(f"{n} {v:.3e}" for n, v in errs.items()))
+            if off > MAX_BAD_FRAC or not all(v <= GRAD_TOL for v in errs.values()):
+                raise AssertionError(f"window pair vs XLA window {label} {kw}: {off} of rays off, "
+                                     f"beyond {GRAD_TOL} max-scaled: {errs}")
+
+    # d. five unguided train steps on the batch of b, then the fit verb
+    # (engine '', the blind step) with --out; only the verb's launches count
+    params = sharding.init_params(shape3, dev)
+    opt = torch.optim.Adam(params.parameters(), lr=d.lr)
+    step_fn = sharding.make_train_step(params, opt, num_steps=DIFF_STEPS)
+    losses = [float(step_fn(*batch)[0]) for _ in range(5)]
+    print(f"diff train: 5 make_train_step steps on {CLI_BATCH} rays x {DIFF_STEPS} steps, losses "
+          + " ".join(f"{v:.6f}" for v in losses))
+    if not np.isfinite(losses).all() or not losses[4] < losses[0]:
+        raise AssertionError(f"diff train: losses not finite or not decreasing: {losses}")
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "fit.png")
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.main(["--device", str(dev), "fit", "--engine", "", "--steps", "5", "--out", png])
+        torch.cuda.synchronize()
+        launched = counts()
+        print(f"cli fit --engine '' --steps 5 --out: {time.perf_counter() - t0:.2f} s (world, "
+              f"targets and the {d.width}x{d.height} x {IMAGE_STEPS} frame included); "
+              f"launches {launched}")
+        check_png(png, side_cli)
+    if launched != {"fused_march": d.views, "fused_march_prox": 0, "window_fwd": 0,
+                    "window_bwd": 0}:
+        raise AssertionError(f"fit --engine '': launches {launched}, expected {d.views} target "
+                             "views through fused_march and nothing else")
+
+    # e. ao_diff at the CLI frame's hit points
+    full_cli = RenderConfig(width=d.width, height=d.height)
+    _, faux = fm.render_rays_fused(scene, cam.pos, dirs_cli, full_cli)
+    pts, nrm = faux["hit_pos"][faux["hit"]].contiguous(), faux["normal"][faux["hit"]].contiguous()
+    dens = ds.density.detach().clone().requires_grad_(True)
+    occ = diff.ao_diff(diff.DiffScene(dens, ds.albedo), pts, nrm,
+                       torch.Generator(device=dev).manual_seed(0))
+    occ.sum().backward()
+    occ, gd = occ.detach(), dens.grad
+    print(f"ao_diff: {pts.shape[0]} hit points x 20 rays x 5 steps: occlusion mean "
+          f"{float(occ.mean()):.4f}, min {float(occ.min()):.4f}, max {float(occ.max()):.4f}; "
+          f"density gradient: {int((gd != 0).sum())} cells, max |g| {float(gd.abs().max()):.3e}")
+    if (not torch.isfinite(occ).all() or float(occ.min()) < 0 or float(occ.max()) > 1
+            or not torch.isfinite(gd).all() or not bool((gd != 0).any())):
+        raise AssertionError("ao_diff: occlusion outside [0, 1] or density gradient not finite "
+                             "and non-zero")
+
+    # f. timing
+    autograd_taker = lambda packed: partial(packed.index_select, 0)  # noqa: E731
+    for nb in (CLI_BATCH, TRAIN_BATCH):
+        i = torch.from_numpy(rng.integers(0, origins.shape[0], nb)).to(dev)
+        b = (origins[i].contiguous(), rdirs[i].contiguous(), targets[i].contiguous())
+        step_ms, peak = peak_ms(lambda: step_fn(*b), reps=3)
+        print(f"timing unguided train step {nb} x {DIFF_STEPS} (make_train_step: loss, backward, "
+              f"Adam; remat on): {step_ms:.3f} ms, {nb / step_ms * 1e3:.4e} rays/s, peak memory "
+              f"{peak} bytes above the {torch.cuda.memory_allocated()} allocated before it "
+              f"(parameters, Adam state, this run's scenes) | {card}")
+
+        def loss_backward(remat, b):
+            opt.zero_grad(set_to_none=True)
+            rgb = diff.render_rays_diff(sharding.params_to_scene(params), b[0], b[1],
+                                        num_steps=DIFF_STEPS, sky=False, remat=remat)
+            torch.mean((rgb - b[2]) ** 2).backward()
+
+        def variant(remat, taker, b=b):
+            """loss+backward with ``remat`` and the scan's row gather ``taker``."""
+            def run():
+                diff._row_taker = taker
+                try:
+                    loss_backward(remat, b)
+                finally:
+                    diff._row_taker = row_taker
+            return run
+
+        row_taker = diff._row_taker
+        variants = {"remat on": variant(True, row_taker), "remat off": variant(False, row_taker),
+                    # autograd's own gather: a zero [V, 4] gradient per scan step
+                    "autograd gather, remat on": variant(True, autograd_taker)}
+        res = {}
+        for label in list(variants) + list(variants)[::-1]:  # in turns: A B C C B A
+            res.setdefault(label, []).append(peak_ms(variants[label], reps=2))
+        print(f"timing blind loss+backward {nb} x {DIFF_STEPS}, in turns: " + "; ".join(
+            f"{k} " + " / ".join(f"{ms:.3f} ms ({pk} bytes)" for ms, pk in v)
+            for k, v in res.items()) + f" | {card}")
+        if nb == CLI_BATCH:
+            for label, fn in variants.items():
+                profile_step(fn, card, steps=2, label=f"blind loss+backward {nb} x {DIFF_STEPS}, "
+                                                      f"{label}")
+        opt.zero_grad(set_to_none=True)
+
+    with torch.no_grad():
+        img_ms = cuda_ms(lambda: diff.render_image_diff(sharding.params_to_scene(params), cam,
+                                                        full_cli), reps=3, warmup=1)
+    print(f"timing render_image_diff {d.width}x{d.height} x {IMAGE_STEPS} steps (fit --out): "
+          f"{img_ms:.3f} ms | {card}")
+    with torch.no_grad():
+        profile_step(lambda: diff.render_image_diff(sharding.params_to_scene(params), cam,
+                                                    full_cli), card, steps=1,
+                     label=f"render_image_diff {d.width}x{d.height} x {IMAGE_STEPS}")
+    gen = torch.Generator(device=dev)
+    with torch.no_grad():
+        ao_ms = cuda_ms(lambda: diff.ao_diff(ds, pts, nrm, gen.manual_seed(0)), reps=3, warmup=1)
+
+    def ao_step():
+        dd = ds.density.detach().requires_grad_(True)
+        diff.ao_diff(diff.DiffScene(dd, ds.albedo), pts, nrm, gen.manual_seed(0)).sum().backward()
+
+    ao_bwd_ms, ao_peak = peak_ms(ao_step, reps=3)
+    print(f"timing ao_diff {pts.shape[0]} points x 20 rays x 5 steps: forward {ao_ms:.3f} ms, "
+          f"forward+backward {ao_bwd_ms:.3f} ms (peak memory {ao_peak} bytes) | {card}")
+    for label, o, dd, sd in views[1:]:
+        def win_step(render, o=o, dd=dd, sd=sd):
+            de = ds.density.detach().requires_grad_(True)
+            al = ds.albedo.detach().requires_grad_(True)
+            render(diff.DiffScene(de, al), o, dd, num_steps=NUM_STEPS, start_t=sd,
+                   sky=False).mean().backward()
+
+        pair = cuda_ms(lambda: win_step(fw.render_window_fused), reps=5, warmup=1)
+        xla_ms = cuda_ms(lambda: win_step(xla), reps=5, warmup=1)
+        print(f"timing window loss+backward {label} x {NUM_STEPS}: kernel pair {pair:.3f} ms, "
+              f"render_rays_diff_window(accum='scatter') {xla_ms:.3f} ms | {card}")
+    return d.views
+
+
 def check_png(path, side):
     with open(path, "rb") as f:
         head = f.read(24)
@@ -1944,9 +2280,15 @@ def run(dev: torch.device, side: int) -> int:
     print(f"edit phase: {time.perf_counter() - t0:.1f} s")
     kernels[0]["launches"] += edit["launches"]
 
+    # 11. the differentiable renders as PyTorch operations
+    t0 = time.perf_counter()
+    diff_launches = diff_phase(dev, card, grid, pal, scene, cli)
+    print(f"diff phase: {time.perf_counter() - t0:.1f} s")
+    kernels[0]["launches"] += diff_launches
+
     # where the kernels lose time on the main paths: launches x (ms - bound)
     # at the shape each launch has (the launch counts are this run's)
-    views = train["march_launches"] - train["seeds"]
+    views = train["march_launches"] - train["seeds"] + diff_launches
     w16, w8 = train["batches"][TRAIN_BATCH], train["batches"][CLI_BATCH]
     order = [
         ("fused_march full, 512^2 frames: render/animate and the edit session's (with "

@@ -14,9 +14,12 @@ march as PyTorch operations. ``--ao`` adds hemisphere AO in every mode.
 ``edit`` reads a command script (or ``-`` for stdin) with the verbs the
 reference binds to keys and mouse: look, rotate, move, goto, select, place,
 delete, pick, time, render, save. ``probe`` prints every debug channel at
-one pixel of the reference render. ``fit`` runs ``app/fit.fit_world``: the
-fused step, through ``render_rays_diff_guided``; ``--engine '' --guided``
-runs the same step.
+one pixel of the reference render. ``fit`` runs ``app/fit.fit_world``: at
+its default (``--engine ''``) the blind volumetric scan's step
+(``parallel/sharding.make_train_step``, 96 steps); ``--engine fused`` and
+``--engine '' --guided`` the guided step through ``render_rays_diff_guided``
+(the seed march and the window kernel pair). ``fit --out`` renders the fitted
+fields with ``render_image_diff`` from the CLI's camera.
 
     python -m raytracing_test_tpu_torch.app.cli render --out frame.png
     python -m raytracing_test_tpu_torch.app.cli render --mode reference --ao --out ref.png
@@ -25,7 +28,8 @@ runs the same step.
     echo "look 55 -25; place; render out.png; save w.npz" | \
         python -m raytracing_test_tpu_torch.app.cli edit -
     python -m raytracing_test_tpu_torch.app.cli probe --row 256 --col 256
-    python -m raytracing_test_tpu_torch.app.cli fit --steps 20
+    python -m raytracing_test_tpu_torch.app.cli fit --steps 20 --out fit.png
+    python -m raytracing_test_tpu_torch.app.cli fit --engine fused --steps 20
     python -m raytracing_test_tpu_torch.app.cli fit --engine "" --guided --steps 20
 
 The render modes ``spatial`` and ``handoff`` (the world sharded over several
@@ -45,7 +49,7 @@ import zlib
 import numpy as np
 import torch
 
-from ..config import FitConfig, RenderConfig, world_for_size
+from ..config import CameraConfig, FitConfig, RenderConfig, world_for_size
 from ..core.flatten import scene_from_grid
 from ..utils.log import debug, set_debug_level
 from ..utils.profiling import FrameStats, sync, trace
@@ -79,13 +83,19 @@ def write_png(img: np.ndarray, path: str) -> None:
         f.write(chunk(b"IEND", b""))
 
 
+def camera_pos(args) -> np.ndarray:
+    """``--pos`` as "x,y,z", else the reference's default camera position."""
+    if args.pos:
+        return np.asarray([float(v) for v in args.pos.split(",")], np.float64)
+    return np.asarray(CameraConfig().pos, np.float64)
+
+
 def make_session(args) -> WorldSession:
     """The JAX CLI's ``_mk_session``: the world for ``--world``, on ``--device``,
     with the camera of ``--pos`` / ``--yaw`` / ``--pitch``."""
     s = WorldSession(world_for_size(args.world), use_native=not args.no_native,
                      device=args.device)
-    if args.pos:
-        s.pos = np.asarray([float(v) for v in args.pos.split(",")], np.float64)
+    s.pos = camera_pos(args)
     s.yaw, s.pitch = args.yaw, args.pitch
     return s
 
@@ -174,22 +184,25 @@ def cmd_edit(args) -> None:
 
 
 def cmd_fit(args) -> None:
+    from ..parallel.sharding import params_to_scene
+    from ..render.camera import camera_from_yaw_pitch
+    from ..render.diff import render_image_diff
     from . import fit as fitmod
 
-    if args.out:
-        raise NotImplementedError(
-            "fit --out renders with the blind volumetric scan (render_image_diff), "
-            "which is not ported yet; see ROADMAP.md, 'Modules to port', item 10"
-        )
     grid, pal = terrain.gen_world_grid(world_for_size(args.world))
     scene = scene_from_grid(grid, pal, torch.device(args.device))
     fcfg = FitConfig(
         views=args.views, steps=args.steps, lr=args.lr, resolution=args.fit_res,
         guided=args.guided, engine=args.engine, shading=args.shading,
     )
-    _, losses = fitmod.fit_world(scene, grid.shape, fcfg, ckpt_path=args.ckpt or None,
-                                 batch=args.batch)
+    params, losses = fitmod.fit_world(scene, grid.shape, fcfg, ckpt_path=args.ckpt or None,
+                                      batch=args.batch)
     print(f"fit done: loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    if args.out:
+        cam = camera_from_yaw_pitch(camera_pos(args), args.yaw, args.pitch, scene.device)
+        with torch.no_grad():
+            img = render_image_diff(params_to_scene(params), cam, _rcfg(args))
+        _save(img, args.out)
 
 
 def cmd_probe(args) -> None:
@@ -263,13 +276,15 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--guided", action="store_true",
                    help="surface-guided sampling with occupancy re-thresholding (the fused "
                    "engine always is)")
-    f.add_argument("--engine", default="fused", choices=["", "fused"],
-                   help="training engine: 'fused' = the seed march + window kernel pair "
-                   "(render_rays_diff_guided); '' with --guided = the same step, else the "
-                   "blind scan, not ported (raises)")
+    f.add_argument("--engine", default="", choices=["", "fused"],
+                   help="training engine: '' = the blind volumetric scan (96 steps), or with "
+                   "--guided the guided step; 'fused' = the guided step: the seed march + "
+                   "window kernel pair (render_rays_diff_guided)")
     f.add_argument("--shading", action="store_true",
                    help="fit face-shaded targets (matches the hard renderer's output)")
-    f.add_argument("--out", default="", help="render the fit (not ported yet: raises)")
+    f.add_argument("--out", default="",
+                   help="write a PNG of the fitted fields (render_image_diff, 192 steps) from "
+                   "the camera of --pos / --yaw / --pitch at --width x --height")
     f.set_defaults(fn=cmd_fit)
 
     pr = sub.add_parser("probe")

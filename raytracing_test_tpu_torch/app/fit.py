@@ -2,14 +2,15 @@
 
 Port of ``raytracing_test_tpu/app/fit.py`` on one device: targets are
 rendered by the hard renderer from a ring of cameras around the world, then
-``make_train_step_fused`` (seed march on an occupancy guide, window kernel
-pair, MSE, Adam, through ``render_rays_diff_guided``) fits the continuous
-fields. Engine ``"fused"`` and engine ``""`` with ``guided`` run that one
-step: on one device the reference's guided step computes the same. The guide
-is re-thresholded from the evolving density every ``rethreshold_every``
-steps. The unguided XLA step (engine ``""``) marches blind and is not
-ported. Batches are drawn with numpy's ``default_rng(seed)``, as in the
-reference.
+a training step fits the continuous fields. Engine ``"fused"`` and engine
+``""`` with ``guided`` run ``make_train_step_fused`` (seed march on an
+occupancy guide, window kernel pair, MSE, Adam, through
+``render_rays_diff_guided``): on one device the reference's guided step
+computes the same. Its guide is re-thresholded from the evolving density
+every ``rethreshold_every`` steps. Engine ``""`` without ``guided`` runs
+``make_train_step`` with 96 steps of the blind volumetric scan, as the
+reference does. Batches are drawn with numpy's ``default_rng(seed)``, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -61,11 +62,6 @@ def fit_world(scene, grid_shape, fcfg: FitConfig = FitConfig(), batch: int = 163
     """Run the fit on ``scene``'s device; returns (params, losses)."""
     if fcfg.engine not in ("", "fused"):
         raise ValueError(f"unknown fit engine {fcfg.engine!r}")
-    if not (fcfg.engine == "fused" or fcfg.guided):
-        raise NotImplementedError(
-            "fit engine '' without guided marches blind (render_rays_diff), which is "
-            "not ported yet; see ROADMAP.md, 'Modules to port', item 10"
-        )
     dev = scene.device
     Sx, Sy, Sz = grid_shape
     center = (Sx / 2, Sy / 3, Sz / 2)
@@ -76,17 +72,22 @@ def fit_world(scene, grid_shape, fcfg: FitConfig = FitConfig(), batch: int = 163
 
     params = shardlib.init_params(grid_shape, dev)
     optimizer = torch.optim.Adam(params.parameters(), lr=fcfg.lr)
-    step_fn = shardlib.make_train_step_fused(params, optimizer, num_steps=fcfg.guided_steps,
-                                             shading=fcfg.shading)
+    guided = fcfg.engine == "fused" or fcfg.guided
+    if guided:
+        step_fn = shardlib.make_train_step_fused(params, optimizer, num_steps=fcfg.guided_steps,
+                                                 shading=fcfg.shading)
+    else:
+        step_fn = shardlib.make_train_step(params, optimizer, num_steps=96)
     guide = None
     rng = np.random.default_rng(seed)
     losses = []
     for step in range(fcfg.steps):
-        if guide is None or step % fcfg.rethreshold_every == 0:
+        if guided and (guide is None or step % fcfg.rethreshold_every == 0):
             # occupancy re-thresholding: the guide tracks the evolving field
             guide = shardlib.guide_scene_from_params(params, tau=fcfg.guide_tau)
         idx = torch.from_numpy(rng.integers(0, N, batch)).to(dev)
-        loss, _ = step_fn(origins[idx], dirs[idx], targets[idx], guide=guide)
+        kw = {"guide": guide} if guided else {}
+        loss, _ = step_fn(origins[idx], dirs[idx], targets[idx], **kw)
         losses.append(float(loss))
         if step % log_every == 0:
             print(f"fit step {step}: loss {losses[-1]:.5f}")

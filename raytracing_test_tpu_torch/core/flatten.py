@@ -43,8 +43,8 @@ import numpy as np
 import torch
 
 from .color import u64_to_unit_f32
-from .tree import Palette
-from .types import Properties
+from .tree import Palette, VoxelTree
+from .types import WORLD_MASK, Block, Properties
 
 MACRO_SHIFT = 2  # macro cells are 4^3 voxels
 BRICK_DIST_CAP = 8  # max brick-level Chebyshev distance (licence <= 7 bricks)
@@ -277,6 +277,49 @@ def scene_from_grid(grid: np.ndarray, pal: Palette, device) -> Scene:
         brick_dist=put(b_dist),
         brick_dist_shadow=put(b_dist_sh),
     )
+
+
+def scene_from_tree(tree: VoxelTree, pal: Palette, grid_shape, device) -> Scene:
+    """Rasterize a tree window and build the Scene on ``device`` (full flatten)."""
+    return scene_from_grid(rasterize_tree(tree, pal, grid_shape), pal, device)
+
+
+def rasterize_tree(tree: VoxelTree, pal: Palette, grid_shape) -> np.ndarray:
+    """Tree -> dense material-id grid over the window [0, shape) (reference
+    :258); blocks new to ``pal`` are added to it."""
+    ext = max(grid_shape)
+    flags, color, meta = tree.to_dense(ext)
+    grid = np.zeros((ext,) * 3, dtype=np.uint8)
+    solid = (flags & 1) == 1
+    if solid.any():
+        # dedupe (flags, color, meta) triples before the python palette loop
+        f, c, m = flags[solid], color[solid], meta[solid]
+        triples = np.stack([f.astype(np.int64), c.astype(np.int64), m.view(np.int32).astype(np.int64)], -1)
+        uniq, inv = np.unique(triples, axis=0, return_inverse=True)
+        uniq_ids = np.array(
+            [
+                pal.id_for(Block(int(uf), int(np.uint64(uc)), float(np.int32(um).view(np.float32))))
+                for uf, uc, um in uniq
+            ],
+            dtype=np.uint8,
+        )
+        grid[solid] = uniq_ids[inv]
+    return grid[: grid_shape[0], : grid_shape[1], : grid_shape[2]]
+
+
+def lookup_material(scene: Scene, x, y, z) -> torch.Tensor:
+    """Material ids (int32) at integer voxel coordinates (int tensors on the
+    scene's device). Coordinates wrap with & 1023 (the reference's address
+    digest, tetrahexa_tree.cpp:127); outside the grid window is air (0). The
+    reference reads its ``mat`` grid; here ``grid_enc``, whose values below
+    128 are the same ids and whose others are air."""
+    Sx, Sy, Sz = scene.shape3
+    xm, ym, zm = x & WORLD_MASK, y & WORLD_MASK, z & WORLD_MASK
+    inside = (xm < Sx) & (ym < Sy) & (zm < Sz)
+    zero = torch.zeros_like(xm)
+    v = scene.grid_enc[torch.where(inside, xm, zero).long(), torch.where(inside, ym, zero).long(),
+                       torch.where(inside, zm, zero).long()].to(torch.int32)
+    return torch.where(inside & (v < 128), v, torch.zeros_like(v))
 
 
 def _nibbles_from_table(table: np.ndarray, n: int) -> np.ndarray:

@@ -25,9 +25,9 @@ from __future__ import annotations
 
 import torch
 
-from ..render.diff import MISS_SEED_MIN, DiffScene, _pack_fields, _window_lin, transmittance
+from ..render.diff import DiffScene, _pack_fields, _ray_start, _window_lin, transmittance
 from ..render.fast import sun_unit
-from ..render.renderer import _argmin_axis, _build_ray, _init_tmax, skybox
+from ..render.renderer import _argmin_axis, skybox
 
 LAUNCHES_FWD = 0  # window_fwd launches in this process (the plain path never counts)
 LAUNCHES_BWD = 0  # window_bwd launches
@@ -247,33 +247,12 @@ def window_call(field, cell, tmax, istep, abs_delta, shape3, sun, S: int, shadin
 
 def window_inputs(shape3, origin, dirs, start_t=None):
     """The reference preamble (:871-893): slab fast-forward to the grid, then
-    the detached seed. Returns (origin_b, d, cell, tmax, istep, abs_delta),
-    differentiable in ``origin`` and ``dirs`` through origin_b, d, tmax and
-    abs_delta."""
-    f32 = torch.float32
-    dev = dirs.device
-    N = dirs.shape[0]
-    Sx, Sy, Sz = shape3
-    if origin.ndim == 1:
-        origin = origin[None, :].expand(N, 3)
-    d, step, delta, abs_delta = _build_ray(dirs)
-    hi = torch.tensor([Sx, Sy, Sz], dtype=f32, device=dev)
-    t1 = (0.0 - origin) * delta
-    t2 = (hi[None, :] - origin) * delta
-    t_entry = torch.amax(torch.minimum(t1, t2), dim=1)
-    t0 = torch.clamp(t_entry - 1e-3, min=0.0)
-    dead = None
-    if start_t is not None:
-        st = torch.as_tensor(start_t, dtype=f32, device=dev).detach()
-        t0 = torch.maximum(t0, st)
-        dead = st >= MISS_SEED_MIN
-    origin_b = origin + t0[:, None] * d
-    cell = torch.floor(origin_b).to(torch.int32)
-    if dead is not None:
-        # miss seeds render pure sky: parked at wrapped cell 1023, every
-        # sample of the window lies outside the grid
-        cell = torch.where(dead[:, None], torch.full_like(cell, 1023), cell)
-    tmax = _init_tmax(origin_b, cell, step, delta, abs_delta)
+    the detached seed; miss seeds are parked at wrapped cell 1023, so every
+    sample of their window lies outside the grid. Returns (origin_b, d, cell,
+    tmax, istep, abs_delta), differentiable in ``origin`` and ``dirs``
+    through origin_b, d, tmax and abs_delta."""
+    origin_b, d, cell, tmax, step, abs_delta = _ray_start(shape3, origin, dirs, start_t,
+                                                          park_misses=True)
     return (origin_b, d, cell.contiguous(), tmax.contiguous(), step.to(torch.int32).contiguous(),
             abs_delta.contiguous())
 

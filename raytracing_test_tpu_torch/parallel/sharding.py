@@ -1,15 +1,18 @@
-"""The training step on the fused engines, on one device.
+"""The training steps on one device.
 
 Port of the single-device subset of ``raytracing_test_tpu/parallel/sharding.py``:
 the fit parameters (``FitParams`` :61, ``params_to_scene`` :68,
-``init_params`` :75), the occupancy guide (``guide_scene_from_params`` :89),
-``make_train_step_fused`` (:156): seed march on the guide (the lean
-fused march), the 24-step window render (the window kernel pair), MSE loss,
+``init_params`` :75), the blind loss ``loss_fn`` (:83) and its step
+``make_train_step`` (:255): the blind volumetric scan
+(``render/diff.py:render_rays_diff``, 128 steps by default), MSE, backward
+and an Adam step; the occupancy guide (``guide_scene_from_params`` :89) and
+``make_train_step_fused`` (:156): seed march on the guide (the lean fused
+march), the 24-step window render (the window kernel pair), MSE loss,
 backward and an Adam step, all through ``render/diff.py:
 render_rays_diff_guided``; ``make_train_step_guided`` (:117) is the same
-step on one device, and its name here. Data parallelism
-(the reference's ``shard_map`` + ``pmean`` and sharding annotations) waits
-for ROADMAP.md, queue item 9.
+step on one device, and its name here. Data parallelism (the reference's
+``shard_map`` + ``pmean`` and sharding annotations) waits for ROADMAP.md,
+queue item 9.
 
 ``params_from_jax`` and ``adam_state_from_optax`` carry weights and optimizer
 state across from the JAX package as numpy arrays (checkpoints, tests).
@@ -25,7 +28,7 @@ from ..core.color import rgb_to_u64
 from ..core.flatten import Scene, scene_from_grid
 from ..core.tree import Palette
 from ..core.types import Block
-from ..render.diff import DiffScene, render_rays_diff_guided
+from ..render.diff import DiffScene, render_rays_diff, render_rays_diff_guided
 
 
 class FitParams(nn.Module):
@@ -51,6 +54,12 @@ def init_params(grid_shape, device="cuda") -> FitParams:
         density_raw=torch.full((Sx, Sy, Sz), -2.0, dtype=f32, device=device),
         albedo_raw=torch.zeros((Sx, Sy, Sz, 3), dtype=f32, device=device),
     )
+
+
+def loss_fn(params: FitParams, origins, dirs, targets, num_steps: int = 128):
+    """MSE of the blind scan (``sky=False``) against ``targets``."""
+    rgb = render_rays_diff(params_to_scene(params), origins, dirs, num_steps=num_steps, sky=False)
+    return torch.mean((rgb - targets) ** 2)
 
 
 def params_from_jax(density_raw, albedo_raw, device="cuda") -> FitParams:
@@ -136,3 +145,19 @@ def make_train_step_fused(params: FitParams, optimizer: torch.optim.Optimizer,
 
 
 make_train_step_guided = make_train_step_fused
+
+
+def make_train_step(params: FitParams, optimizer: torch.optim.Optimizer, num_steps: int = 128):
+    """One training step on the blind scan: ``train_step(origins, dirs,
+    targets) -> (loss, aux)``: ``loss_fn``, backward, then ``optimizer``'s
+    step on ``params``. ``aux`` holds ``make_train_step_fused``'s keys: the
+    scan has no escapes and drops no gradient."""
+
+    def train_step(origins, dirs, targets):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(params, origins, dirs, targets, num_steps)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), {"n_escaped": 0, "grads_dropped": False}
+
+    return train_step

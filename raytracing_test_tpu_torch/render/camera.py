@@ -19,11 +19,21 @@ from dataclasses import dataclass
 
 import torch
 
+from ..config import CameraConfig
+
 
 @dataclass(frozen=True)
 class Camera:
     pos: torch.Tensor  # f32[3]
     dir: torch.Tensor  # f32[3], stored as given (the reference never normalises it)
+
+
+def make_camera(cfg: CameraConfig, device) -> Camera:
+    """The camera of a ``CameraConfig`` on ``device``."""
+    return Camera(
+        pos=torch.as_tensor(cfg.pos, dtype=torch.float32, device=device),
+        dir=torch.as_tensor(cfg.dir, dtype=torch.float32, device=device),
+    )
 
 
 def yaw_pitch_dir(yaw_deg: float, pitch_deg: float):

@@ -2,16 +2,22 @@
 JAX package's originals.
 
 The port imports nothing of ``raytracing_test_tpu``, so it carries copies of
-``config``, ``core.types`` / ``core.color`` / ``core.tree``, the 2D noise,
-``worldgen.terrain``, ``app.picking`` and ``chebyshev_distance_field``
-(``core/flatten.py``). They are numpy and Python in both
-packages, so worlds, palettes, noise and pick results must be equal exactly.
+``config``, ``core.types`` / ``core.color`` / ``core.tree``, the noise (2D,
+3D and 4D), ``ops.morton``, ``worldgen.terrain``, ``app.picking``,
+``chebyshev_distance_field``, ``rasterize_tree`` / ``scene_from_tree`` /
+``lookup_material`` (``core/flatten.py``) and ``make_camera``. The copies are
+numpy and Python in both packages (``lookup_material`` and ``make_camera``
+on tensors here), so worlds, palettes, noise, codes, lookups and pick results
+must be equal exactly; the 3D and 4D noise also to the golden values of
+tests/golden/opensimplex34.npz.
 """
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from raytracing_test_tpu import config as jconfig
 from raytracing_test_tpu.app import picking as jpicking
@@ -114,3 +120,73 @@ def test_world_tree_matches_jax(trees):
     for name in ("flags", "word", "aux_u32", "aux_f32", "children"):
         np.testing.assert_array_equal(getattr(ttree, name), getattr(jtree, name), err_msg=name)
     assert ttree.root == jtree.root
+
+
+@pytest.mark.parametrize("dim", [3, 4])
+def test_opensimplex34_bit_equal_to_golden_and_jax(dim):
+    g = np.load("tests/golden/opensimplex34.npz")
+    for si, seed in enumerate(g["seeds"]):
+        tn = getattr(tnoise, f"OpenSimplex{dim}D")(int(seed))
+        jn = getattr(jnoise, f"OpenSimplex{dim}D")(int(seed))
+        np.testing.assert_array_equal(tn.perm, jn.perm)
+        sel = np.nonzero(g[f"si{dim}"] == si)[0]
+        pts = g[f"pts{dim}"][sel]
+        got = np.array([tn.eval(*p) for p in pts])
+        np.testing.assert_array_equal(got, g[f"val{dim}"][sel])
+        np.testing.assert_array_equal(got, np.array([jn.eval(*p) for p in pts]))
+
+
+def test_morton_matches_jax():
+    from raytracing_test_tpu.ops import morton as jm
+    from raytracing_test_tpu_torch.ops import morton as tm
+
+    x, y, z = np.random.default_rng(3).integers(0, 2048, (3, 500))
+    want = jm.morton_encode(x, y, z)
+    got = tm.morton_encode(x, y, z)
+    assert got.dtype == want.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)
+    t = tm.morton_encode(*(torch.from_numpy(v) for v in (x, y, z)))
+    assert t.dtype == torch.int64
+    np.testing.assert_array_equal(t.numpy(), want)
+    for xi, yi, zi in zip(x[:50].tolist(), y[:50].tolist(), z[:50].tolist()):
+        code = tm.morton_encode(xi, yi, zi)
+        assert code == jm.morton_encode(xi, yi, zi)
+        assert tm.morton_digits(code) == jm.morton_digits(code)
+        assert [tm.child_index(xi, yi, zi, k) for k in range(5)] == tm.morton_digits(code)
+
+
+def test_rasterize_and_scene_from_tree_match_jax(trees):
+    from raytracing_test_tpu.core import flatten as jflat
+    from raytracing_test_tpu_torch.core import flatten as tflat
+
+    ttree, jtree, (tg, tpal), (jg, jpal) = trees
+    shape = tg.shape
+    got = tflat.rasterize_tree(ttree, tpal, shape)
+    np.testing.assert_array_equal(got, jflat.rasterize_tree(jtree, jpal, shape))
+    np.testing.assert_array_equal(got, tg)
+    ts = tflat.scene_from_tree(ttree, tpal, shape, "cpu")
+    js = jflat.scene_from_tree(jtree, jpal, shape)
+    for name in ("grid_enc", "macro", "albedo", "flags", "metadata", "brick_mat", "brick_dist"):
+        np.testing.assert_array_equal(getattr(ts, name).numpy(), np.asarray(getattr(js, name)),
+                                      err_msg=name)
+    assert ts.y_max == int(js.y_max)
+
+    rng = np.random.default_rng(5)
+    x, y, z = (rng.integers(-1100, 2100, 4000) for _ in range(3))
+    x[:200], y[:200], z[:200] = (rng.integers(0, 48, 200) for _ in range(3))  # in the world
+    want = np.asarray(jflat.lookup_material(js, *(jnp.asarray(v, jnp.int32) for v in (x, y, z))))
+    mats = tflat.lookup_material(ts, *(torch.from_numpy(v.astype(np.int32)) for v in (x, y, z)))
+    assert mats.dtype == torch.int32 and (want > 0).sum() > 20
+    np.testing.assert_array_equal(mats.numpy(), want)
+
+
+def test_make_camera_matches_jax():
+    from raytracing_test_tpu.render.camera import make_camera as jmake
+    from raytracing_test_tpu_torch.render.camera import make_camera as tmake
+
+    for cfg in (tconfig.CameraConfig(), tconfig.CameraConfig(pos=(1.5, 90.0, -3.25),
+                                                              dir=(0.2, -0.7, 0.4))):
+        got = tmake(cfg, "cpu")
+        want = jmake(jconfig.CameraConfig(**dataclasses.asdict(cfg)))
+        np.testing.assert_array_equal(got.pos.numpy(), np.asarray(want.pos))
+        np.testing.assert_array_equal(got.dir.numpy(), np.asarray(want.dir))

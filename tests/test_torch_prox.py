@@ -283,9 +283,22 @@ def test_guided_render_matches_reference(world, case):
     _max_scaled(got[2], want[2], 1e-4, "albedo")
 
 
-def test_guided_render_options():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tdiff.render_rays_diff_guided(None, None, None, None, window=False)
+def test_guided_render_options(world):
+    """``window=False`` renders the blind scan from the guided seeds (the
+    reference's route, :546-550), and refuses shading; unknown engines and
+    accums are refused."""
+    from raytracing_test_tpu_torch.render.progressive import guided_seeds
+
+    origin, dirs = (torch.from_numpy(v) for v in _rays("a"))
+    got = tdiff.render_rays_diff_guided(world["td"], world["ts"], origin, dirs, num_steps=32,
+                                        window=False)
+    seed = guided_seeds(tfm.render_rays_fused, world["ts"], origin, dirs, 3.0)
+    assert (seed < tdiff.MISS_SEED_MIN).any()
+    want = tdiff.render_rays_diff(world["td"], origin, dirs, num_steps=32, start_t=seed)
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+    with pytest.raises(ValueError, match="shading requires the window path"):
+        tdiff.render_rays_diff_guided(world["td"], world["ts"], origin, dirs, window=False,
+                                      shadow_steps=4)
     with pytest.raises(ValueError, match="engine"):
         tdiff.render_rays_diff_guided(None, None, None, None, engine="scan")
     with pytest.raises(ValueError, match="accum"):

@@ -230,7 +230,7 @@ def test_train_steps_match_jax_adam():
     assert not np.array_equal(np.asarray(jp.density_raw), d)  # the steps moved the weights
 
 
-def test_fit_world_tiny_and_engines():
+def test_fit_world_tiny_and_engines(monkeypatch):
     grid, pal = terrain.gen_world_grid(world_for_size(16))
     scene = tflat.scene_from_grid(grid, pal, "cpu")
     fcfg = FitConfig(views=2, steps=3, resolution=8, engine="fused", rethreshold_every=2)
@@ -239,18 +239,25 @@ def test_fit_world_tiny_and_engines():
     assert len(losses) == 3 and np.isfinite(losses).all()
     assert params.density_raw.shape == grid.shape
     assert (tfw.LAUNCHES_FWD, tfw.LAUNCHES_BWD) == launches
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tfit.fit_world(scene, grid.shape, FitConfig(views=1, steps=1, resolution=4), batch=8)
+    # engine '' without guided: the blind scan's step, no guide and no window
+    guides = []
+    guide = tshard.guide_scene_from_params
+    monkeypatch.setattr(tshard, "guide_scene_from_params",
+                        lambda *a, **k: guides.append(1) or guide(*a, **k))
+    params, losses = tfit.fit_world(scene, grid.shape, FitConfig(views=1, steps=2, resolution=4),
+                                    batch=8)
+    assert len(losses) == 2 and np.isfinite(losses).all() and not guides
+    assert (tfw.LAUNCHES_FWD, tfw.LAUNCHES_BWD) == launches
 
 
 def test_fit_verb_cpu(tmp_path, capsys):
     ck = str(tmp_path / "fit.npz")
-    cli.main(["--device", "cpu", "--world", "16", "fit", "--steps", "2", "--views", "2",
-              "--fit-res", "8", "--batch", "32", "--ckpt", ck])
+    cli.main(["--device", "cpu", "--world", "16", "fit", "--engine", "fused", "--steps", "2",
+              "--views", "2", "--fit-res", "8", "--batch", "32", "--ckpt", ck])
     out = capsys.readouterr().out
     losses = [float(v) for v in out.split("fit done: loss ")[1].split(" -> ")]
     assert np.isfinite(losses).all()
     params, states, step = tckpt.load_fit(ck, device="cpu")
     assert step == 2 and int(states[0]["step"]) == 2
-    assert cli.build_parser().parse_args(["fit"]).engine == "fused"
+    assert cli.build_parser().parse_args(["fit"]).engine == ""
     assert cli.build_parser().parse_args(["render"]).device == "cuda"
