@@ -209,8 +209,31 @@ Phases (any failure raises, and the script exits non-zero):
                    (fit --out); ao_diff forward and forward+backward; the
                    window's loss+backward on the kernel pair and on
                    render_rays_diff_window at the train batches.
+ 12. multi  -- multi-device execution (parallel/):
+                a. a world of one rank over NCCL on the card, at full width:
+                   render_rays_fused_dp at 1024x1024 bit-equal to
+                   render_image_fused; render_image_sharded at the CLI's
+                   512x512 view bit-equal to the reference frame;
+                   render_window_fused_dp at 1024x1024 x 24 (bench seeds):
+                   rgb exact, field gradients within 1e-5 max-scaled of
+                   render_window_fused's; five dp fused steps at 16384 rays
+                   and two dp unguided steps at 8192 rays x 96, each loss
+                   within 1e-6 of the one-device step's and falling;
+                   ``render --mode spatial`` / ``handoff`` through the CLI
+                   (PNG bytes) and its session (floats) bit-equal to
+                   ``reference`` / ``fast``; each path's ms beside its
+                   one-device counterpart's, the gradient all-reduce's ms,
+                   and torch.profiler's device busy time and idle share;
+                b. two gloo ranks sharing the card (launch.run_ranks): one dp
+                   fused step at 8192 rays against (a)'s (loss within 1e-6,
+                   fields within 1e-5 max-scaled); spatial and handoff on a
+                   (1, 2) mesh at 128x128 from the bench camera bit-equal to
+                   one rank's, lanes shipped; dryrun_multichip(2); the
+                   render scaling harness's overhead_table for 1 and 2 ranks
+                   (time-sharing one card: an overhead, not scaling).
+                The dp launches of (a) are added to the kernels' counts.
 
-After phase 11 the kernels are ordered by the time they lose on the main
+After phase 12 the kernels are ordered by the time they lose on the main
 paths: launches x (ms - bound) at the shape each launch has (512^2 frames,
 64^2 target views, the train batches' seeds and window pairs, the 512^2
 brick frame's launches, both prox passes); for brick_advance the 512^2
@@ -2136,6 +2159,310 @@ def diff_phase(dev, card, grid, pal, scene, cli):
     return d.views
 
 
+# ---------------------------------------------------------------- phase 12
+
+MULTI_BATCH = 8192  # the two-rank step's batch (gloo carries its gradient through the host)
+MULTI_SIDE = 128  # the two-rank spatial / handoff frames
+MULTI_TIMEOUT = 300.0  # the two-rank world's limit (rank start-up included)
+
+
+def world_fields(scene) -> dict:
+    """The Scene's arrays as numpy (``core.flatten.scene_from_jax`` takes them)."""
+    out = {k: getattr(scene, k).cpu().numpy()
+           for k in ("grid_enc", "macro", "albedo", "flags", "metadata")}
+    out["y_max"] = np.int64(scene.y_max)
+    return out
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean ms per call of ``fn`` on the host clock, the card synchronised
+    after each call, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def two_rank_checks(tmp: str, device: str, side: int) -> dict:
+    """Phase 12b, on each of two gloo ranks sharing cuda:0 (launch.run_ranks):
+    the dp fused step at MULTI_BATCH rays against (a)'s one-rank step, the
+    spatial and handoff frames on a (1, 2) mesh, dryrun_multichip(2) and the
+    render scaling harness over 1 and 2 ranks at ``side``^2. Returns what the
+    rank reports."""
+    from raytracing_test_tpu_torch.config import RenderConfig
+    from raytracing_test_tpu_torch.core.flatten import scene_from_jax
+    from raytracing_test_tpu_torch.parallel import dryrun, handoff, mesh as meshlib
+    from raytracing_test_tpu_torch.parallel import scaling, sharding, spatial
+    from raytracing_test_tpu_torch.render.camera import Camera
+
+    dev = torch.device(device)
+    mesh = meshlib.make_mesh(2, 1, dev)
+    scene = scene_from_jax(dict(np.load(os.path.join(tmp, "world.npz"))), dev)
+    batch = [t.to(dev) for t in torch.load(os.path.join(tmp, "batch.pt"))]
+    out = {"backend": mesh.backend, "rank": meshlib.process_rank()}
+
+    params = sharding.init_params(scene.shape3, dev)
+    opt = torch.optim.Adam(params.parameters(), lr=0.05)
+    step = sharding.make_train_step_fused(params, opt, sharding.guide_scene_from_params(params),
+                                          mesh=mesh)
+    loss, aux = step(*batch)
+    ref = torch.load(os.path.join(tmp, "step_ref.pt"))
+    out["step_loss"] = float(loss)
+    out["step_aux"] = aux
+    out["step_field_err"] = max(scaled_err(p.detach(), r.to(dev)) for p, r in zip(
+        (params.density_raw, params.albedo_raw), ref["fields"]))
+    del ref
+
+    cam = Camera(pos=torch.tensor(BENCH_POS, device=dev), dir=torch.tensor(BENCH_DIR, device=dev))
+    rcfg = RenderConfig(width=MULTI_SIDE, height=MULTI_SIDE)
+    space = meshlib.make_mesh(1, 2, dev)
+    sc = spatial.shard_scene_spatial(scene, space)
+    out["slab"] = tuple(sc.slab.grid_enc.shape)
+    out["spatial"] = spatial.render_image_spatial(sc, cam, rcfg, space).cpu()
+    img, out["handoff_stats"] = handoff.render_image_handoff(sc, cam, rcfg, space,
+                                                             return_stats=True)
+    out["handoff"] = img.cpu()
+    out["dryrun"] = dryrun.dryrun_multichip(2, dev)
+    full = RenderConfig(width=side, height=side)
+    out["render_rates"] = scaling.measure_render_scaling(scene, cam, full, [1, 2], iters=5,
+                                                         device=dev)
+    out["host_copies"] = mesh.host_copies + space.host_copies
+    return out
+
+
+def multi_phase(dev, card, grid, pal, scene, cli):
+    """Phase 12, multi-device execution: (a) every data-parallel and
+    space-sharded path on a world of one rank over NCCL at full width, each
+    against its one-device counterpart, with times; (b) two gloo ranks
+    sharing the card (two_rank_checks). Returns the phase's main-path launch
+    counts; any mismatch, timeout or failed rank raises."""
+    from raytracing_test_tpu_torch.app import fit
+    from raytracing_test_tpu_torch.config import CameraConfig, RenderConfig, WorldConfig
+    from raytracing_test_tpu_torch.core.flatten import palette_arrays
+    from raytracing_test_tpu_torch.kernels import fused_march as fm, fused_window as fw
+    from raytracing_test_tpu_torch.parallel import handoff, launch, mesh as meshlib
+    from raytracing_test_tpu_torch.parallel import scaling, sharding, spatial
+    from raytracing_test_tpu_torch.render import renderer
+    from raytracing_test_tpu_torch.render.camera import Camera, ray_directions, yaw_pitch_dir
+    from raytracing_test_tpu_torch.render.diff import diff_scene_from_grid
+
+    t_phase = time.perf_counter()
+    mesh = meshlib.make_mesh(1, 1, dev, backend=meshlib.default_backend(dev))
+    print(f"multi a: world {meshlib.world_size()} rank, backend {mesh.backend}, {mesh.device}")
+    launches = {"fused_march": 0, "window_fwd": 0, "window_bwd": 0}
+
+    def main_path(fn):
+        """Run one call of a multi-device entry point with the counts set to
+        0 just before it and read just after; the comparisons' launches are
+        not counted."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        c = counts()
+        for k in launches:
+            launches[k] += c[k]
+        return out, c
+
+    cam = Camera(pos=torch.tensor(BENCH_POS, device=dev), dir=torch.tensor(BENCH_DIR, device=dev))
+    full = RenderConfig(width=FULL, height=FULL)
+    dirs = ray_directions(cam, FULL, FULL)
+    times = {}
+
+    # the fused march, rays split over the data axis, gathered
+    (col, aux), c = main_path(lambda: fm.render_rays_fused_dp(scene, cam.pos, dirs, full, mesh,
+                                                               image_hw=(FULL, FULL)))
+    one = fm.render_image_fused(scene, cam, full).reshape(-1, 3)
+    if c["fused_march"] != 1 or not torch.equal(col, one):
+        raise AssertionError(f"render_rays_fused_dp: launches {c}, equal to render_image_fused "
+                             f"{torch.equal(col, one)}")
+    times[f"render_rays_fused_dp {FULL}^2"] = (
+        cuda_ms(lambda: fm.render_rays_fused_dp(scene, cam.pos, dirs, full, mesh,
+                                                image_hw=(FULL, FULL)), 10, 2),
+        cuda_ms(lambda: fm.render_image_fused(scene, cam, full), 10, 2))
+
+    # the reference frame, rays split over the data axis
+    d = cli.build_parser().parse_args(["render"])
+    cli_cam = Camera(pos=torch.tensor(CameraConfig().pos, dtype=torch.float32, device=dev),
+                     dir=torch.tensor(yaw_pitch_dir(d.yaw, d.pitch), dtype=torch.float32,
+                                      device=dev))
+    half = RenderConfig(width=d.width, height=d.height)
+    img, _ = main_path(lambda: sharding.render_image_sharded(scene, cli_cam, half, mesh))
+    if not torch.equal(img, renderer.render_jit(scene, cli_cam, half)):
+        raise AssertionError("render_image_sharded differs from the reference frame")
+    times[f"render_image_sharded {d.width}^2"] = (
+        host_ms(lambda: sharding.render_image_sharded(scene, cli_cam, half, mesh), 2),
+        host_ms(lambda: renderer.render_jit(scene, cli_cam, half), 2))
+
+    # the window pair, rays split over the data axis, field gradients summed
+    ds = diff_scene_from_grid(grid, palette_arrays(pal)[0], dev, solid_density=SOLID_DENSITY)
+    seed = fm.seed_depth_fused(scene, cam.pos, dirs, (FULL, FULL))
+
+    def window(render, **kw):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (ds.density, ds.albedo)]
+        from raytracing_test_tpu_torch.render.diff import DiffScene
+
+        rgb = render(DiffScene(*leaves), cam.pos, dirs, num_steps=NUM_STEPS, sky=False,
+                     start_t=seed, **kw)
+        rgb.mean().backward()
+        return rgb.detach(), leaves[0].grad, leaves[1].grad
+
+    (rgb, gd, ga), c = main_path(lambda: window(fw.render_window_fused_dp, mesh=mesh))
+    rgb1, gd1, ga1 = window(fw.render_window_fused)
+    w_err = (float((rgb - rgb1).abs().max()), scaled_err(gd, gd1), scaled_err(ga, ga1))
+    print(f"window dp {FULL}^2 x {NUM_STEPS}: rgb max |diff| {w_err[0]:.3g}, gradients "
+          f"max-scaled {w_err[1]:.3g} (density) {w_err[2]:.3g} (albedo), launches {c}")
+    if w_err[0] != 0.0 or max(w_err[1:]) > GRAD_TOL or (c["window_fwd"], c["window_bwd"]) != (1, 1):
+        raise AssertionError(f"render_window_fused_dp: {w_err}, launches {c}")
+    times[f"render_window_fused_dp {FULL}^2 x {NUM_STEPS} (loss+backward)"] = (
+        cuda_ms(lambda: window(fw.render_window_fused_dp, mesh=mesh), 5, 1),
+        cuda_ms(lambda: window(fw.render_window_fused), 5, 1))
+    del ds, rgb, gd, ga, rgb1, gd1, ga1
+
+    # the train steps: data parallel against one device, on the same batch
+    g = WorldConfig().grid_shape
+    cams = fit.ring_cameras((g[0] / 2, g[1] / 3, g[2] / 2), 0.8 * g[0], 0.9 * g[1], 8, device=dev)
+    origins, rdirs, targets = fit.make_targets(scene, cams, 64)
+    idx = torch.from_numpy(np.random.default_rng(0).integers(0, origins.shape[0], TRAIN_BATCH))
+    batch = [t[idx.to(dev)] for t in (origins, rdirs, targets)]
+
+    def steps_pair(make, n_steps, rays, **kw):
+        """(dp losses, one-device losses, dp ms, one-device ms) of n_steps
+        alternate steps of the two from the same weights on one batch."""
+        out = []
+        for m in (mesh, None):
+            p = sharding.init_params(tuple(g), dev)
+            opt = torch.optim.Adam(p.parameters(), lr=0.05)
+            out.append((p, make(p, opt, mesh=m, **kw)))
+        b = [t[:rays] for t in batch]
+        losses = ([], [])
+        for _ in range(n_steps):
+            (l_dp, aux), c = main_path(lambda: out[0][1](*b))
+            losses[0].append(float(l_dp))
+            losses[1].append(float(out[1][1](*b)[0]))
+            if aux != {"n_escaped": 0, "grads_dropped": False}:
+                raise AssertionError(f"dp step aux {aux}")
+        ms = tuple(host_ms(lambda: st(*b), 2) for _, st in out)
+        return losses, ms, lambda: out[0][1](*b)
+
+    guide = sharding.guide_scene_from_params(sharding.init_params(tuple(g), dev))
+    dp_steps = {}
+    for name, make, n_steps, rays, kw in (
+            ("fused", sharding.make_train_step_fused, 5, TRAIN_BATCH, {"guide_scene": guide}),
+            ("unguided", sharding.make_train_step, 2, CLI_BATCH, {"num_steps": 96})):
+        (dp, one), ms, dp_steps[f"{name} dp step {rays} rays"] = steps_pair(make, n_steps, rays,
+                                                                            **kw)
+        print(f"{name} dp step, {n_steps} steps x {rays} rays: losses {dp}, one device {one}")
+        if any(abs(a - b) > 1e-6 * abs(b) for a, b in zip(dp, one)) or not dp[-1] < dp[0] \
+                or not np.isfinite(dp).all():
+            raise AssertionError(f"{name} dp step: losses {dp} against one device {one}")
+        times[f"{name} dp step {rays} rays"] = ms
+
+    # (b)'s reference: one fused step at MULTI_BATCH rays on this rank
+    tmp = tempfile.mkdtemp(prefix="multi-")
+    p = sharding.init_params(tuple(g), dev)
+    step = sharding.make_train_step_fused(p, torch.optim.Adam(p.parameters(), lr=0.05), guide,
+                                          mesh=mesh)
+    b8 = [t[:MULTI_BATCH] for t in batch]
+    (loss_ref, _), _ = main_path(lambda: step(*b8))
+    torch.save({"fields": [p.density_raw.detach().cpu(), p.albedo_raw.detach().cpu()]},
+               os.path.join(tmp, "step_ref.pt"))
+    torch.save([t.cpu() for t in b8], os.path.join(tmp, "batch.pt"))
+    np.savez(os.path.join(tmp, "world.npz"), **world_fields(scene))
+    del p, step
+
+    # the gradient all-reduce alone: the coalesced [V, 4] float32 buffer
+    buf = torch.zeros(4 * int(np.prod(g)), dtype=torch.float32, device=dev)
+    times[f"all-reduce of the field gradients ({buf.numel() * 4 / 1e6:.0f} MB)"] = (
+        cuda_ms(lambda: mesh.psum_(buf, meshlib.DATA_AXIS), 10, 2), float("nan"))
+    del buf
+
+    # the world split over the space axis, through the CLI and its session
+    with tempfile.TemporaryDirectory() as pngs:
+        frames = {}
+        for mode in ("spatial", "reference", "handoff", "fast"):
+            path = os.path.join(pngs, f"{mode}.png")
+            argv = ["--device", str(dev), "render", "--mode", mode, "--out", path]
+            if mode in ("spatial", "handoff"):
+                main_path(lambda: cli.main(argv))
+            else:
+                cli.main(argv)
+            with open(path, "rb") as f:
+                frames[mode] = f.read()
+        if frames["spatial"] != frames["reference"] or frames["handoff"] != frames["fast"]:
+            raise AssertionError("CLI: spatial / handoff PNGs differ from reference / fast")
+    args = cli.build_parser().parse_args(["--device", str(dev), "render"])
+    sess = cli.make_session(args)
+    rcfg = cli._rcfg(args)
+    imgs = {m: sess.render(rcfg, mode=m) for m in ("spatial", "reference", "handoff", "fast")}
+    if not (torch.equal(imgs["spatial"], imgs["reference"])
+            and torch.equal(imgs["handoff"], imgs["fast"])):
+        raise AssertionError("session: spatial / handoff frames differ from reference / fast")
+    for m in ("spatial", "handoff"):
+        other = {"spatial": "reference", "handoff": "fast"}[m]
+        times[f"{m} {args.width}^2 (one rank) vs {other}"] = (
+            host_ms(lambda: sess.render(rcfg, mode=m), 2),
+            host_ms(lambda: sess.render(rcfg, mode=other), 2))
+    space = meshlib.make_mesh(1, 1, dev)
+    sc = spatial.shard_scene_spatial(scene, space)
+    small = RenderConfig(width=MULTI_SIDE, height=MULTI_SIDE)
+    one_spatial = spatial.render_image_spatial(sc, cam, small, space).cpu()
+    one_handoff, st1 = handoff.render_image_handoff(sc, cam, small, space, return_stats=True)
+    one_handoff = one_handoff.cpu()
+    if not torch.equal(one_handoff, fm.render_image_fused(scene, cam, small).cpu()):
+        raise AssertionError(f"handoff {MULTI_SIDE}^2 differs from the fused kernel's frame")
+
+    print(f"multi a: times (ms; multi-device path, one-device counterpart) | {card}")
+    for k, (a, b) in times.items():
+        print(f"  {k}: {a:.3f}, {b:.3f}")
+    # where each path's time goes (device busy time and idle share)
+    profile_step(lambda: fm.render_rays_fused_dp(scene, cam.pos, dirs, full, mesh,
+                                                 image_hw=(FULL, FULL)),
+                 card, steps=3, label=f"render_rays_fused_dp {FULL}^2")
+    profile_step(lambda: sharding.render_image_sharded(scene, cli_cam, half, mesh), card,
+                 steps=1, label=f"render_image_sharded {d.width}^2")
+    ds = diff_scene_from_grid(grid, palette_arrays(pal)[0], dev, solid_density=SOLID_DENSITY)
+    profile_step(lambda: window(fw.render_window_fused_dp, mesh=mesh), card, steps=3,
+                 label=f"render_window_fused_dp {FULL}^2 x {NUM_STEPS} (loss+backward)")
+    del ds
+    for k, fn in dp_steps.items():
+        profile_step(fn, card, steps=2, label=k)
+    for m in ("spatial", "handoff"):
+        profile_step(lambda: sess.render(rcfg, mode=m), card, steps=1,
+                     label=f"{m} {args.width}^2, one rank")
+    print(f"multi a: {time.perf_counter() - t_phase:.1f} s, main-path launches {launches}")
+
+    # (b) two gloo ranks sharing the card
+    t0 = time.perf_counter()
+    res = launch.run_ranks(two_rank_checks, 2, backend="gloo", device=str(dev),
+                           timeout=MULTI_TIMEOUT, args=(tmp, str(dev), FULL))
+    r0 = res[0]
+    for k in ("step_loss", "step_field_err"):
+        print(f"multi b: {k} {[r[k] for r in res]}")
+    print(f"multi b: backend {r0['backend']}, host copies {[r['host_copies'] for r in res]}, "
+          f"slab {r0['slab']}, handoff {r0['handoff_stats']}, one rank {st1}")
+    rates = r0["render_rates"]
+    print(f"multi b: render rays/s {rates}, overhead_table {scaling.overhead_table(rates)} "
+          "(two ranks time-share one card: an overhead, not a scaling figure) | " + card)
+    print(f"multi b: dryrun {r0['dryrun']}")
+    bad = []
+    for r in res:
+        if abs(r["step_loss"] - float(loss_ref)) > 1e-6 * abs(float(loss_ref)):
+            bad.append(f"rank {r['rank']} loss {r['step_loss']} vs {float(loss_ref)}")
+        if r["step_field_err"] > GRAD_TOL:
+            bad.append(f"rank {r['rank']} fields {r['step_field_err']}")
+        if not (torch.equal(r["spatial"], one_spatial) and torch.equal(r["handoff"], one_handoff)):
+            bad.append(f"rank {r['rank']} spatial / handoff frames differ from one rank's")
+    if r0["backend"] != "gloo" or r0["handoff_stats"]["lanes_shipped"] <= 0 or bad:
+        raise AssertionError(f"multi b: {bad}, backend {r0['backend']}, "
+                             f"stats {r0['handoff_stats']}")
+    print(f"multi b: {time.perf_counter() - t0:.1f} s; phase 12 {time.perf_counter() - t_phase:.1f} s")
+    meshlib.shutdown()
+    return launches
+
+
 def check_png(path, side):
     with open(path, "rb") as f:
         head = f.read(24)
@@ -2285,6 +2612,11 @@ def run(dev: torch.device, side: int) -> int:
     diff_launches = diff_phase(dev, card, grid, pal, scene, cli)
     print(f"diff phase: {time.perf_counter() - t0:.1f} s")
     kernels[0]["launches"] += diff_launches
+
+    # 12. multi-device: one rank over NCCL, then two gloo ranks on the card
+    multi = multi_phase(dev, card, grid, pal, scene, cli)
+    for k in kernels:
+        k["launches"] += multi.get(k["name"], 0)
 
     # where the kernels lose time on the main paths: launches x (ms - bound)
     # at the shape each launch has (the launch counts are this run's)

@@ -10,7 +10,9 @@ the edits, picks the looked-at block and draws through the mode's renderer.
 march kernel (``kernels/fused_march``: the CUDA kernel on the card, its
 plain version on ``--device cpu``), ``bricks`` / ``bricks-pallas`` through the
 brick kernels, ``reference`` (or ``--slow``) through the per-cell reference
-march as PyTorch operations. ``--ao`` adds hemisphere AO in every mode.
+march as PyTorch operations, ``spatial`` and ``handoff`` with the world split
+along x over every rank (parallel/spatial.py, parallel/handoff.py). ``--ao``
+adds hemisphere AO in every mode but ``handoff``.
 ``edit`` reads a command script (or ``-`` for stdin) with the verbs the
 reference binds to keys and mouse: look, rotate, move, goto, select, place,
 delete, pick, time, render, save. ``probe`` prints every debug channel at
@@ -32,10 +34,18 @@ fields with ``render_image_diff`` from the CLI's camera.
     python -m raytracing_test_tpu_torch.app.cli fit --engine fused --steps 20
     python -m raytracing_test_tpu_torch.app.cli fit --engine "" --guided --steps 20
 
-The render modes ``spatial`` and ``handoff`` (the world sharded over several
-devices) are not ported yet (ROADMAP.md, item 9). ``pallas`` is rejected: the
-JAX CLI offers it, but its ``WorldSession.render`` has no renderer for it
-and raises ``unknown render mode 'pallas'``.
+Several ranks: under ``torchrun --nproc-per-node K`` every rank joins the
+process group (``--backend``, default NCCL for ``cuda``, gloo for ``cpu``)
+on ``cuda:<LOCAL_RANK>``; ``spatial`` and ``handoff`` split the world over
+the K ranks, ``fit`` is data parallel over them, and rank 0 alone prints
+the fit and writes the PNGs. A plain process is a world of one.
+
+    torchrun --nproc-per-node 4 -m raytracing_test_tpu_torch.app.cli render --mode handoff
+    torchrun --nproc-per-node 4 -m raytracing_test_tpu_torch.app.cli fit --steps 20
+
+``pallas`` is rejected: the JAX CLI offers it, but its
+``WorldSession.render`` has no renderer for it and raises ``unknown render
+mode 'pallas'``.
 """
 
 from __future__ import annotations
@@ -54,9 +64,9 @@ from ..core.flatten import scene_from_grid
 from ..utils.log import debug, set_debug_level
 from ..utils.profiling import FrameStats, sync, trace
 from ..worldgen import terrain
-from .session import MULTI_DEVICE_MODES, RENDER_MODES, WorldSession
+from ..parallel import mesh as meshlib
+from .session import RENDER_MODES, WorldSession
 
-UNPORTED_MODES = MULTI_DEVICE_MODES  # ROADMAP.md, 'Modules to port', item 9
 NO_RENDERER_MODES = ("pallas",)  # offered by the JAX CLI, rendered by nothing there
 
 
@@ -101,6 +111,9 @@ def make_session(args) -> WorldSession:
 
 
 def _save(img: torch.Tensor, path: str) -> None:
+    """Write the frame as a PNG: on rank 0 only, when several ranks render."""
+    if meshlib.process_rank() != 0:
+        return
     write_png(img.cpu().numpy(), path)
     debug(1, f"wrote {path}")
 
@@ -195,9 +208,13 @@ def cmd_fit(args) -> None:
         views=args.views, steps=args.steps, lr=args.lr, resolution=args.fit_res,
         guided=args.guided, engine=args.engine, shading=args.shading,
     )
+    mesh = None
+    if meshlib.launched_world() > 1:  # data parallel over the ranks torchrun started
+        mesh = meshlib.make_mesh(meshlib.world_size(), 1, scene.device)
     params, losses = fitmod.fit_world(scene, grid.shape, fcfg, ckpt_path=args.ckpt or None,
-                                      batch=args.batch)
-    print(f"fit done: loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+                                      batch=args.batch, mesh=mesh)
+    if meshlib.process_rank() == 0:
+        print(f"fit done: loss {losses[0]:.5f} -> {losses[-1]:.5f}")
     if args.out:
         cam = camera_from_yaw_pitch(camera_pos(args), args.yaw, args.pitch, scene.device)
         with torch.no_grad():
@@ -218,10 +235,6 @@ def cmd_probe(args) -> None:
 def _render_mode(value: str) -> str:
     if value in RENDER_MODES:
         return value
-    if value in UNPORTED_MODES:
-        raise argparse.ArgumentTypeError(
-            f"render mode {value!r} shards the world over several devices and is not ported "
-            f"yet; see ROADMAP.md, 'Modules to port', item 9")
     if value in NO_RENDERER_MODES:
         raise argparse.ArgumentTypeError(
             f"render mode {value!r} has no renderer: the reference does not render this mode "
@@ -232,7 +245,11 @@ def _render_mode(value: str) -> str:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="raytracing_test_tpu_torch")
-    p.add_argument("--device", default="cuda", help="torch device: cuda[:n] (default) or cpu")
+    p.add_argument("--device", default="cuda", help="torch device: cuda[:n] (default) or cpu; "
+                   "under torchrun, cuda means cuda:<LOCAL_RANK>")
+    p.add_argument("--backend", default="",
+                   help="process group backend under torchrun (default: nccl for cuda, gloo "
+                   "for cpu)")
     p.add_argument("--debug-level", type=int, default=1)
     p.add_argument("--world", type=int, default=200, help="world columns per side")
     p.add_argument("--width", type=int, default=512)
@@ -252,7 +269,8 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--mode", type=_render_mode, default="fused",
                    help=f"render path: {', '.join(RENDER_MODES)} (fast, fused and progressive "
                    "run the fused march kernel, bricks and bricks-pallas the brick kernels, "
-                   "reference PyTorch operations; see app/session.py render)")
+                   "reference PyTorch operations, spatial and handoff split the world over "
+                   "the ranks; see app/session.py render)")
     r.set_defaults(fn=cmd_render)
 
     a = sub.add_parser("animate")
@@ -297,7 +315,16 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     set_debug_level(args.debug_level)
-    args.fn(args)
+    owned = not meshlib.in_group()  # leave a caller's process group as it is
+    if meshlib.launched_world() > 1:
+        if args.device == "cuda":
+            args.device = f"cuda:{os.environ.get('LOCAL_RANK', '0')}"
+        meshlib.initialize_multihost(backend=args.backend or meshlib.default_backend(args.device))
+    try:
+        args.fn(args)
+    finally:
+        if owned:
+            meshlib.shutdown()
 
 
 if __name__ == "__main__":

@@ -11,6 +11,12 @@ every ``rethreshold_every`` steps. Engine ``""`` without ``guided`` runs
 ``make_train_step`` with 96 steps of the blind volumetric scan, as the
 reference does. Batches are drawn with numpy's ``default_rng(seed)``, as in
 the reference.
+
+With a mesh (parallel/mesh.py) the fit is data parallel, as the reference's
+fit is over all its devices: every rank builds the same targets and draws
+the same indices from the same seed, the batch is rounded down to a multiple
+of the data axis (:103-105), and each step takes the rank's block and
+averages the gradients over the axis. Rank 0 alone prints and saves.
 """
 
 from __future__ import annotations
@@ -58,26 +64,32 @@ def make_targets(scene, cams: List[Camera], res: int):
 
 
 def fit_world(scene, grid_shape, fcfg: FitConfig = FitConfig(), batch: int = 16384,
-              seed: int = 0, ckpt_path: Optional[str] = None, log_every: int = 20):
-    """Run the fit on ``scene``'s device; returns (params, losses)."""
+              seed: int = 0, ckpt_path: Optional[str] = None, log_every: int = 20, mesh=None):
+    """Run the fit on ``scene``'s device (data parallel over ``mesh``'s data
+    axis, given one); returns (params, losses)."""
     if fcfg.engine not in ("", "fused"):
         raise ValueError(f"unknown fit engine {fcfg.engine!r}")
     dev = scene.device
+    lead = mesh is None or mesh.coords == (0, 0)  # rank 0 prints and saves
+    if mesh is not None:
+        batch = (batch // mesh.n_data) * mesh.n_data
     Sx, Sy, Sz = grid_shape
     center = (Sx / 2, Sy / 3, Sz / 2)
     cams = ring_cameras(center, radius=0.8 * Sx, height=0.9 * Sy, n=fcfg.views, device=dev)
     origins, dirs, targets = make_targets(scene, cams, fcfg.resolution)
     N = origins.shape[0]
-    print(f"fit: {fcfg.views} views, {N} target rays, {dev}")
+    if lead:
+        print(f"fit: {fcfg.views} views, {N} target rays, {dev}"
+              + (f", {mesh.n_data} data ranks" if mesh is not None else ""))
 
     params = shardlib.init_params(grid_shape, dev)
     optimizer = torch.optim.Adam(params.parameters(), lr=fcfg.lr)
     guided = fcfg.engine == "fused" or fcfg.guided
     if guided:
         step_fn = shardlib.make_train_step_fused(params, optimizer, num_steps=fcfg.guided_steps,
-                                                 shading=fcfg.shading)
+                                                 shading=fcfg.shading, mesh=mesh)
     else:
-        step_fn = shardlib.make_train_step(params, optimizer, num_steps=96)
+        step_fn = shardlib.make_train_step(params, optimizer, num_steps=96, mesh=mesh)
     guide = None
     rng = np.random.default_rng(seed)
     losses = []
@@ -89,10 +101,10 @@ def fit_world(scene, grid_shape, fcfg: FitConfig = FitConfig(), batch: int = 163
         kw = {"guide": guide} if guided else {}
         loss, _ = step_fn(origins[idx], dirs[idx], targets[idx], **kw)
         losses.append(float(loss))
-        if step % log_every == 0:
+        if lead and step % log_every == 0:
             print(f"fit step {step}: loss {losses[-1]:.5f}")
-        if ckpt_path and step and step % 100 == 0:
+        if lead and ckpt_path and step and step % 100 == 0:
             checkpoint.save_fit(ckpt_path, params, optimizer, step)
-    if ckpt_path:
+    if lead and ckpt_path:
         checkpoint.save_fit(ckpt_path, params, optimizer, fcfg.steps)
     return params, losses

@@ -25,6 +25,11 @@ Where the port departs from the reference session:
     version (``render/fast.py``, the reference's ``fast`` march) on the CPU;
   - there is no fused-to-fast fallback: the kernel reads ``grid_enc``
     directly, so any palette up to ``Palette.MAX_IDS`` renders through it.
+
+``spatial`` and ``handoff`` render on a (1, world size) mesh, as the
+reference does (session.py:286-296): the world's x axis split over every
+rank of the process group (a plain process joins a one-rank group of its
+own), AO off for ``handoff``.
 """
 
 from __future__ import annotations
@@ -45,8 +50,8 @@ from ..render.camera import Camera, yaw_pitch_dir
 from ..utils.log import Timer
 from . import picking
 
-RENDER_MODES = ("fast", "fused", "bricks", "bricks-pallas", "reference", "progressive")
-MULTI_DEVICE_MODES = ("spatial", "handoff")  # ROADMAP.md, 'Modules to port', item 9
+RENDER_MODES = ("fast", "fused", "bricks", "bricks-pallas", "reference", "progressive",
+                "spatial", "handoff")
 
 
 def _hotbar():
@@ -80,6 +85,7 @@ class WorldSession:
             self._mirror = SceneMirror(self.grid, self.palette, self.device)
             self.scene = self._mirror.scene
         self.sync_ms = {}  # host times of the last sync's phases
+        self._space_mesh = None  # the (1, world size) mesh of spatial / handoff
 
         # camera state (ref defaults: globals.cpp:20-21)
         self.pos = np.asarray(CameraConfig().pos, np.float64)
@@ -216,8 +222,9 @@ class WorldSession:
         coarse-to-fine through the same march; bricks / bricks-pallas, the
         brick kernels; reference, the per-cell march as PyTorch operations.
         ``enable_ao`` is served by the shared ``renderer.shade`` in every
-        mode. spatial and handoff (the world sharded over several devices)
-        are not ported yet."""
+        mode but handoff; spatial and handoff, the world sharded along x
+        over every rank of the process group (the collective-lookup
+        reference march; the ray-handoff fast march, AO off)."""
         self.sync()
         if highlight:
             res = self.pick()
@@ -242,8 +249,15 @@ class WorldSession:
             from ..render import progressive
 
             return progressive.render_image_progressive(self.scene, cam, rcfg)[0]
-        if mode in MULTI_DEVICE_MODES:
-            raise NotImplementedError(
-                f"render mode {mode!r} shards the world over several devices and is not "
-                "ported yet; see ROADMAP.md, 'Modules to port', item 9")
+        if mode in ("spatial", "handoff"):
+            from ..parallel import handoff, mesh as meshlib, spatial
+
+            if self._space_mesh is None:
+                self._space_mesh = meshlib.make_mesh(1, meshlib.world_size(), self.device)
+            mesh = self._space_mesh
+            sc = spatial.shard_scene_spatial(self.scene, mesh)
+            if mode == "handoff":
+                rcfg = replace(rcfg, enable_ao=False)
+                return handoff.render_image_handoff(sc, cam, rcfg, mesh)
+            return spatial.render_image_spatial(sc, cam, rcfg, mesh)
         raise ValueError(f"unknown render mode {mode!r}")

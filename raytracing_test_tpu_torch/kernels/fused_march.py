@@ -12,7 +12,8 @@ no fallback from one to the other. ``LAUNCHES`` counts kernel launches, so a
 caller can show that a run went through the kernel; launches in the prox mode
 (``prox=True``: the seed march that stops at the first entry into an
 occupied 8^3 brick, the reference's ``prox_stop``) count in ``LAUNCHES_PROX``
-instead.
+instead. ``render_rays_fused_dp`` splits the rays over a mesh's data axis
+(parallel/mesh.py): one launch per rank on its block.
 """
 
 from __future__ import annotations
@@ -261,6 +262,43 @@ def render_image_fused(scene: Scene, camera: Camera, cfg: RenderConfig, time_s=N
     dirs = ray_directions(camera, cfg.width, cfg.height, cfg.fov_degrees)
     col, _ = render_rays_fused(scene, camera.pos, dirs, cfg, time_s=time_s, image_w=cfg.width)
     return fast.crosshair(col.reshape(cfg.height, cfg.width, 3), cfg)
+
+
+@torch.no_grad()
+def render_rays_fused_dp(scene: Scene, origin, dirs, cfg: RenderConfig, mesh, time_s=None,
+                         image_hw=None):
+    """Data-parallel fused render (``render_rays_fused_dp``, reference :967):
+    each rank marches its contiguous block of the rays through
+    ``render_rays_fused`` on its own device, then ``col``, ``hit`` and
+    ``hit_pos`` are gathered over the mesh's data axis, in natural ray order,
+    on every rank. Returns (col [N, 3], {"hit", "hit_pos"}), equal to the
+    single-device render: the rays are independent.
+
+    ``image_hw`` (H, W): the rays are a row-major image, and a rank whose
+    block is whole rows launches it in the kernel's 8x4 warp tiles
+    (``image_w``), as ``render_image_fused`` does. The reference's 64x64
+    block permutation is a TPU layout the port leaves out (ROADMAP.md,
+    item 12). Raises when N does not split evenly over the data axis."""
+    from ..parallel.mesh import DATA_AXIS
+
+    f32 = torch.float32
+    dev = mesh.device
+    origin = torch.as_tensor(origin, dtype=f32, device=dev)
+    dirs = torch.as_tensor(dirs, dtype=f32, device=dev)
+    N = dirs.shape[0]
+    block = mesh.block(dirs)
+    image_w = 0
+    if image_hw is not None:
+        H, W = image_hw
+        if H * W != N:
+            raise ValueError(f"render_rays_fused_dp: {N} rays are no {H}x{W} image")
+        image_w = W if block.shape[0] % W == 0 else 0
+    o = origin if origin.ndim == 1 else mesh.block(origin)
+    col, aux = render_rays_fused(scene, o, block, cfg, time_s=time_s, image_w=image_w)
+    return mesh.all_gather(col, DATA_AXIS), {
+        "hit": mesh.all_gather(aux["hit"], DATA_AXIS),
+        "hit_pos": mesh.all_gather(aux["hit_pos"], DATA_AXIS),
+    }
 
 
 @torch.no_grad()

@@ -19,6 +19,10 @@ The reference's box/strip machinery, escape fallback (``overflow``,
 early-out are TPU workarounds and are not carried: every shape runs on the
 kernels, all S steps, exactly. ``aux`` keeps the reference keys, with
 ``n_escaped`` a constant 0 and ``grads_dropped`` False.
+
+``render_window_fused_dp`` splits the rays over a mesh's data axis
+(parallel/mesh.py): one launch pair per rank on its block, the field
+gradients summed over the axis in the backward.
 """
 
 from __future__ import annotations
@@ -314,3 +318,48 @@ def render_window_plain(scene: DiffScene, origin, dirs, num_steps: int = 24,
     return _render_window(window_plain, scene, origin, dirs, num_steps, sun_dir, sky, start_t,
                           shading, shadow_steps, return_aux)
 
+
+
+class _SumGradOverData(torch.autograd.Function):
+    """The fields as they are forward; their gradients summed over the mesh's
+    data axis backward (one all-reduce of both): the transpose of the
+    reference's unmapped ``shard_map`` operand."""
+
+    @staticmethod
+    def forward(ctx, mesh, density, albedo):
+        ctx.mesh = mesh
+        return density.view_as(density), albedo.view_as(albedo)
+
+    @staticmethod
+    def backward(ctx, g_d, g_a):
+        from ..parallel.mesh import DATA_AXIS
+
+        g_d = torch.zeros_like(g_d) if g_d is None else g_d
+        g_a = torch.zeros_like(g_a) if g_a is None else g_a
+        flat = ctx.mesh.psum_(torch.cat([g_d.reshape(-1), g_a.reshape(-1)]), DATA_AXIS)
+        n = g_d.numel()
+        return None, flat[:n].view_as(g_d), flat[n:].view_as(g_a)
+
+
+def render_window_fused_dp(scene: DiffScene, origin, dirs, mesh, num_steps: int = 24,
+                           sun_dir=(2.0, 1.0, 4.0), sky: bool = True, start_t=None,
+                           shading: bool = False, shadow_steps: int = 0):
+    """Data-parallel window render (``render_window_fused_dp``, reference
+    :1045): this rank's contiguous block of the rays (and of ``start_t``)
+    through ``render_window_fused`` on the replicated fields. Returns the
+    block's rgb [N / n_data, 3]. The field gradients are summed over the data
+    axis in the backward (``_SumGradOverData``), as the reference's
+    ``shard_map`` transpose sums them; a loss that is a mean divides by the
+    rays itself. Raises when N does not split evenly over the data axis."""
+    f32 = torch.float32
+    dev = scene.device
+    origin = torch.as_tensor(origin, dtype=f32, device=dev)
+    dirs = mesh.block(torch.as_tensor(dirs, dtype=f32, device=dev))
+    if origin.ndim == 2:
+        origin = mesh.block(origin)
+    if start_t is not None:
+        start_t = mesh.block(torch.as_tensor(start_t, dtype=f32, device=dev))
+    density, albedo = _SumGradOverData.apply(mesh, scene.density, scene.albedo)
+    return render_window_fused(DiffScene(density, albedo), origin, dirs, num_steps=num_steps,
+                               sun_dir=sun_dir, sky=sky, start_t=start_t, shading=shading,
+                               shadow_steps=shadow_steps)

@@ -1,7 +1,8 @@
-"""The training steps on one device.
+"""Sharded rendering and the training steps, on one device or data parallel.
 
-Port of the single-device subset of ``raytracing_test_tpu/parallel/sharding.py``:
-the fit parameters (``FitParams`` :61, ``params_to_scene`` :68,
+Port of ``raytracing_test_tpu/parallel/sharding.py``: ``shard_scene`` (:30)
+and ``render_image_sharded`` (:36), the reference march on each rank's block
+of rays, gathered over the data axis; the fit parameters (``FitParams`` :61, ``params_to_scene`` :68,
 ``init_params`` :75), the blind loss ``loss_fn`` (:83) and its step
 ``make_train_step`` (:255): the blind volumetric scan
 (``render/diff.py:render_rays_diff``, 128 steps by default), MSE, backward
@@ -10,9 +11,16 @@ and an Adam step; the occupancy guide (``guide_scene_from_params`` :89) and
 march), the 24-step window render (the window kernel pair), MSE loss,
 backward and an Adam step, all through ``render/diff.py:
 render_rays_diff_guided``; ``make_train_step_guided`` (:117) is the same
-step on one device, and its name here. Data parallelism (the reference's
-``shard_map`` + ``pmean`` and sharding annotations) waits for ROADMAP.md,
-queue item 9.
+step on one device, and its name here.
+
+Data parallel (``mesh=``, parallel/mesh.py): each step is called with the
+whole batch on every rank, takes the rank's contiguous block, computes the
+local loss and its backward, then averages the two fields' gradients over
+the data axis (one coalesced all-reduce, divided by the axis size: the
+reference's ``pmean``, :224-229) before Adam, so every rank keeps the same
+weights. The step returns the loss averaged over the data axis, with
+``n_escaped`` summed and ``grads_dropped`` as a max. Without a mesh the steps
+are the single-device steps, unchanged.
 
 ``params_from_jax`` and ``adam_state_from_optax`` carry weights and optimizer
 state across from the JAX package as numpy arrays (checkpoints, tests).
@@ -20,15 +28,65 @@ state across from the JAX package as numpy arrays (checkpoints, tests).
 
 from __future__ import annotations
 
+from dataclasses import fields, replace
+
 import numpy as np
 import torch
 from torch import nn
 
+from ..config import RenderConfig
 from ..core.color import rgb_to_u64
 from ..core.flatten import Scene, scene_from_grid
 from ..core.tree import Palette
 from ..core.types import Block
+from ..render import renderer
+from ..render.camera import Camera, ray_directions
 from ..render.diff import DiffScene, render_rays_diff, render_rays_diff_guided
+from .mesh import DATA_AXIS, Mesh
+
+
+def shard_scene(scene: Scene, mesh: Mesh) -> Scene:
+    """The scene replicated: every rank holds all of it on its own device."""
+    if scene.device == mesh.device:
+        return scene
+    moved = {f.name: getattr(scene, f.name).to(mesh.device) for f in fields(scene)
+             if isinstance(getattr(scene, f.name), torch.Tensor)}
+    return replace(scene, **moved)
+
+
+@torch.no_grad()
+def render_image_sharded(scene: Scene, camera: Camera, cfg: RenderConfig, mesh: Mesh):
+    """The reference render (``renderer.render_rays``) with the pixels split
+    over the data axis: each rank marches its block of rows, then the blocks
+    are gathered over the axis. Returns the [H, W, 3] frame on every rank."""
+    scene = shard_scene(scene, mesh)
+    dirs = ray_directions(camera, cfg.width, cfg.height, cfg.fov_degrees).to(mesh.device)
+    col, _ = renderer.render_rays(scene, camera.pos.to(mesh.device), mesh.block(dirs), cfg)
+    return mesh.all_gather(col, DATA_AXIS).reshape(cfg.height, cfg.width, 3)
+
+
+def average_grads(params: FitParams, mesh: Mesh) -> None:
+    """Replace the two fields' gradients by their mean over the data axis:
+    one all-reduce of both, coalesced into one buffer, divided by the axis
+    size."""
+    gs = [params.density_raw.grad, params.albedo_raw.grad]
+    flat = torch.cat([g.reshape(-1) for g in gs])
+    mesh.psum_(flat, DATA_AXIS)
+    flat /= torch.tensor(float(mesh.axis_size(DATA_AXIS)), device=flat.device)
+    i = 0
+    for g in gs:
+        g.copy_(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+
+
+def _reduce_step(loss: torch.Tensor, n_escaped: int, dropped: bool, mesh: Mesh):
+    """(loss averaged, {n_escaped summed, grads_dropped as a max}) over the
+    data axis, in one all-reduce (a sum of 0/1 flags is positive exactly
+    when their max is 1)."""
+    st = mesh.psum(torch.stack([loss.detach(), loss.new_tensor(float(n_escaped)),
+                                loss.new_tensor(float(dropped))]), DATA_AXIS)
+    n = torch.tensor(float(mesh.axis_size(DATA_AXIS)), device=loss.device)
+    return st[0] / n, {"n_escaped": int(st[1]), "grads_dropped": bool(st[2] > 0)}
 
 
 class FitParams(nn.Module):
@@ -66,6 +124,27 @@ def params_from_jax(density_raw, albedo_raw, device="cuda") -> FitParams:
     """FitParams from the JAX package's ``FitParams`` arrays (numpy)."""
     put = lambda a: torch.from_numpy(np.array(a, np.float32, order="C")).to(device)
     return FitParams(put(density_raw), put(albedo_raw))
+
+
+def shard_params_spatial(params: FitParams, mesh: Mesh) -> FitParams:
+    """This space rank's x-slab of both fields (``Sx / n_space`` columns), on
+    the mesh's device: the fields as the multi-chip dry run shards them over
+    the space axis (``params_from_jax`` weights too)."""
+    from .mesh import SPACE_AXIS
+
+    with torch.no_grad():
+        return FitParams(*(mesh.block(p.detach(), SPACE_AXIS).to(mesh.device).clone()
+                           for p in (params.density_raw, params.albedo_raw)))
+
+
+def gather_params_spatial(params: FitParams, mesh: Mesh) -> FitParams:
+    """The whole fields from every space rank's slab (``shard_params_spatial``
+    undone), on every rank."""
+    from .mesh import SPACE_AXIS
+
+    with torch.no_grad():
+        return FitParams(*(mesh.all_gather(p.detach(), SPACE_AXIS)
+                           for p in (params.density_raw, params.albedo_raw)))
 
 
 def adam_state_from_optax(count, mu, nu):
@@ -118,28 +197,30 @@ def guide_scene_from_params(params: FitParams, tau: float = 1.0,
 
 def make_train_step_fused(params: FitParams, optimizer: torch.optim.Optimizer,
                           guide_scene: Scene = None, num_steps: int = 24, shading: bool = False,
-                          shadow_steps: int = 0):
+                          shadow_steps: int = 0, mesh: Mesh = None):
     """One training step on the fused engines: ``train_step(origins, dirs,
     targets, guide=None) -> (loss, aux)``. It renders through
     ``render_rays_diff_guided``: the lean seed march on ``guide`` (default
     ``guide_scene``; re-thresholded guides swap in per call), margin 3, no
     coarse pass, then the window kernel pair; MSE, backward, Adam. ``aux``
     holds the reference's ``n_escaped`` (0) and ``grads_dropped`` (False):
-    the port's window has no escapes.
+    the port's window has no escapes. With ``mesh``, data parallel (module
+    docstring): the reference's ``shard_map`` + ``pmean`` step.
 
-    On one device the reference's ``make_train_step_guided`` (:117) computes
-    the same step on its XLA accumulators; here it is this function."""
+    The reference's ``make_train_step_guided`` (:117) computes the same step
+    on its XLA accumulators; here it is this function."""
 
     def train_step(origins, dirs, targets, guide=None):
         g = guide_scene if guide is None else guide
+        if mesh is not None:
+            origins, dirs, targets = (mesh.block(x) for x in (origins, dirs, targets))
         optimizer.zero_grad(set_to_none=True)
         rgb = render_rays_diff_guided(params_to_scene(params), g, origins, dirs,
                                       num_steps=num_steps, sky=False, shading=shading,
                                       shadow_steps=shadow_steps)
         loss = torch.mean((rgb - targets) ** 2)
         loss.backward()
-        optimizer.step()
-        return loss.detach(), {"n_escaped": 0, "grads_dropped": False}
+        return _finish_step(params, optimizer, loss, mesh)
 
     return train_step
 
@@ -147,17 +228,33 @@ def make_train_step_fused(params: FitParams, optimizer: torch.optim.Optimizer,
 make_train_step_guided = make_train_step_fused
 
 
-def make_train_step(params: FitParams, optimizer: torch.optim.Optimizer, num_steps: int = 128):
+def make_train_step(params: FitParams, optimizer: torch.optim.Optimizer, num_steps: int = 128,
+                    mesh: Mesh = None):
     """One training step on the blind scan: ``train_step(origins, dirs,
     targets) -> (loss, aux)``: ``loss_fn``, backward, then ``optimizer``'s
     step on ``params``. ``aux`` holds ``make_train_step_fused``'s keys: the
-    scan has no escapes and drops no gradient."""
+    scan has no escapes and drops no gradient. With ``mesh``, data parallel
+    (module docstring): the reference's sharded step, whose gradient
+    all-reduce XLA inserts from the sharding annotations."""
 
     def train_step(origins, dirs, targets):
+        if mesh is not None:
+            origins, dirs, targets = (mesh.block(x) for x in (origins, dirs, targets))
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(params, origins, dirs, targets, num_steps)
         loss.backward()
-        optimizer.step()
-        return loss.detach(), {"n_escaped": 0, "grads_dropped": False}
+        return _finish_step(params, optimizer, loss, mesh)
 
     return train_step
+
+
+def _finish_step(params: FitParams, optimizer, loss, mesh: Mesh):
+    """Adam on the gradients (averaged over the data axis first, with a
+    mesh) -> (loss, aux). The port's steps have no escapes and drop no
+    gradient."""
+    if mesh is None:
+        optimizer.step()
+        return loss.detach(), {"n_escaped": 0, "grads_dropped": False}
+    average_grads(params, mesh)
+    optimizer.step()
+    return _reduce_step(loss, 0, False, mesh)

@@ -100,13 +100,17 @@ def _aabb_advance_bounds(s: _March, lo, hi, mask, budget):
 
 
 def _march_body(scene: Scene, s: _March, enc, cfg: RenderConfig, budget, shadow: bool, time_s,
-                prox: bool = False):
+                prox: bool = False, shape3=None):
     """One march iteration: process the current cell (materials / hit), apply
     the exit rules, then advance air lanes through their certified empty box
     (a plain DDA step when the box is a single cell). With ``prox``, ``enc``
     is from ``prox_enc``: every value < 128 is a stop cell, and its air cells
-    (``PROX_AIR``) report material 1 (``fused_march.py:461-472``)."""
-    Sx, Sy, Sz = scene.shape3
+    (``PROX_AIR``) report material 1 (``fused_march.py:461-472``).
+
+    ``shape3`` overrides the world window of the exit rules: the handoff
+    march (parallel/handoff.py) passes the whole world's while ``scene``
+    holds one x-slab."""
+    Sx, Sy, Sz = shape3 if shape3 is not None else scene.shape3
     active = ~s.done
 
     # ---- current-cell processing
@@ -200,11 +204,16 @@ def _init_state(origin, dirs, ior, start_t=None):
     )
 
 
-def start_cell(scene: Scene, s: _March):
+def start_cell(scene: Scene, s: _March, lookup_fn=None):
     """Start-cell specials (frag:299-307): a camera inside a solid block shows
     its flat colour (``raw0``); inside a refractive block it starts at ior 1.1.
-    Returns (state, raw0, mat0)."""
-    mat0, flags0 = lookup_mat_flags(scene, s.cell)
+    Returns (state, raw0, mat0). ``lookup_fn(cell) -> mat`` overrides the
+    start cell's lookup (the handoff path's slab lookup)."""
+    if lookup_fn is None:
+        mat0, flags0 = lookup_mat_flags(scene, s.cell)
+    else:
+        mat0 = lookup_fn(s.cell)
+        flags0 = scene.flags[mat0.long()]
     refr0 = (flags0 & int(Properties.REFRACTIVE)) > 0
     raw0 = (mat0 != 0) & ~refr0
     ior = torch.where((mat0 != 0) & refr0, IOR_WATER, 1.0).to(s.dir.dtype)
@@ -215,6 +224,15 @@ def start_cell(scene: Scene, s: _March):
 def _shadow_march_fast(scene: Scene, p, cell, last_axis, step, cfg, sun, active):
     """Sun shadow (semantics of renderer._shadow_march): rebuild toward the
     sun, exit through the hit face, march ``shadow_steps`` skipping LIQUID."""
+    s = shadow_start(p, cell, last_axis, sun, active)
+    s, _ = fast_march(scene, s, cfg, cfg.shadow_steps, shadow=True)
+    return active & (s.mat != 0)
+
+
+def shadow_start(p, cell, last_axis, sun, active) -> _March:
+    """The shadow march's state toward the sun from hit points ``p`` in
+    ``cell``, after its first step out of the hit block (``done`` where not
+    ``active``)."""
     N = p.shape[0]
     dev = p.device
     d, sstep, sdelta, sabs = _build_ray(sun[None, :].expand(N, 3))
@@ -250,8 +268,7 @@ def _shadow_march_fast(scene: Scene, p, cell, last_axis, step, cfg, sun, active)
         last_t=torch.where(active, t_cross, s.last_t),
         steps=s.steps + active.to(torch.int32),
     )
-    s, _ = fast_march(scene, s, cfg, cfg.shadow_steps, shadow=True)
-    return active & (s.mat != 0)
+    return s
 
 
 def render_rays_fast(scene: Scene, origin, dirs, cfg: RenderConfig, start_t=None, time_s=None):

@@ -5,7 +5,9 @@ Port of ``raytracing_test_tpu/render/renderer.py``: the DDA helpers
 (:58-129), the march state (:132), ``classify`` and ``material_step``
 (:149-221), ``_lookup`` (:104, over ``grid_enc``), the primary and shadow
 marches (:224, :313), the AO march (:350), ``shade`` (:379-452) and
-``render_rays`` / ``render_image`` / ``render_jit`` (:455-503). Every
+``render_rays`` / ``render_image`` / ``render_jit`` (:455-503). The marches
+and ``shade`` take the reference's ``lookup_fn`` / ``ao_lookup_fn`` hooks,
+through which parallel/spatial.py answers each lookup from the x-slabs. Every
 function works on [N]-shaped tensors on any device; the arithmetic is the
 reference's, operation for operation, so the CUDA kernel
 (csrc/fused_march.cu) can reproduce the parts it shares with contraction off.
@@ -208,27 +210,37 @@ def material_step(s: _March, is_refl, is_refr, flags, cfg: RenderConfig, time_s=
     return dirx, stepx, absx, tmaxx, segx, last_t, cmod, ior, reflected
 
 
-def _march_loop(body, state, live, budget: int):
+def _any(mask) -> bool:
+    return bool(mask.any())
+
+
+def _march_loop(body, state, live, budget: int, any_fn=_any):
     """``while i < budget and live(state).any(): state = body(state)`` with the
     any-test every ``_ANY_EVERY`` iterations (``body`` leaves a finished lane
-    unchanged, so the extra iterations change nothing)."""
+    unchanged, so the extra iterations change nothing). ``any_fn(mask) ->
+    bool`` makes the test: a loop whose body holds a collective passes one
+    that agrees on every rank of the collective's group."""
     for i in range(budget):
-        if i % _ANY_EVERY == 0 and not bool(live(state).any()):
+        if i % _ANY_EVERY == 0 and not any_fn(live(state)):
             break
         state = body(state)
     return state
 
 
-def _primary_march(scene: Scene, origin, dirs, cfg: RenderConfig, time_s=None):
+def _primary_march(scene: Scene, origin, dirs, cfg: RenderConfig, time_s=None, lookup_fn=None,
+                   any_fn=_any):
     """The unified primary+material march loop (renderer.py:224): one voxel a
-    step, ``max_steps`` steps at most."""
+    step, ``max_steps`` steps at most. ``lookup_fn(cell) -> mat`` overrides
+    the voxel lookup (parallel/spatial.py's slab lookup), ``any_fn`` the
+    live-lane test (``_march_loop``)."""
+    lookup = lookup_fn if lookup_fn is not None else (lambda c: _lookup(scene, c))
     N = dirs.shape[0]
     f32 = dirs.dtype
     d, step, delta, abs_delta = _build_ray(dirs)
     cell = torch.floor(origin).to(torch.int32)[None, :].expand(N, 3)
     origin_b = origin[None, :].expand(N, 3).to(f32)
     tmax = _init_tmax(origin_b, cell, step, delta, abs_delta)
-    mat0 = _lookup(scene, cell)
+    mat0 = lookup(cell)
     flags0 = scene.flags[mat0.long()]
 
     # camera-inside-block special cases (low_res.frag:299-307)
@@ -271,7 +283,7 @@ def _primary_march(scene: Scene, origin, dirs, cfg: RenderConfig, time_s=None):
         m = march[:, None]
         cell_f = torch.where(m, cell_n, s.cell)
         return _March(
-            mat=torch.where(march, _lookup(scene, cell_f), s.mat),
+            mat=torch.where(march, lookup(cell_f), s.mat),
             cell=cell_f,
             dir=dirx,
             step=stepx,
@@ -287,15 +299,18 @@ def _primary_march(scene: Scene, origin, dirs, cfg: RenderConfig, time_s=None):
             steps=s.steps + march.to(torch.int32),
         )
 
-    state = _march_loop(body, state, lambda s: ~s.done, cfg.max_steps)
+    state = _march_loop(body, state, lambda s: ~s.done, cfg.max_steps, any_fn)
     return state, raw0, mat0, sun
 
 
-def _shadow_march(scene: Scene, p, cell, last_axis, step, cfg, sun, active):
+def _shadow_march(scene: Scene, p, cell, last_axis, step, cfg, sun, active, lookup_fn=None,
+                  any_fn=_any):
     """Sun shadow ray (low_res.frag:373-391; renderer.py:313): rebuild toward
     the sun, exit through the hit face first, march <= ``shadow_steps`` steps
     skipping LIQUID blocks. Returns occluded bool[N] (any non-air terminator,
-    budget-exhausted liquid included, matching frag:389)."""
+    budget-exhausted liquid included, matching frag:389). ``lookup_fn`` and
+    ``any_fn``: as in ``_primary_march``."""
+    lookup = lookup_fn if lookup_fn is not None else (lambda c: _lookup(scene, c))
     _, sstep, sdelta, sabs = _build_ray(sun[None, :].expand(p.shape))
     tmax = _init_tmax(p, cell, sstep, sdelta, sabs)
     tmax = tmax - _onehot(last_axis, p.dtype) * sabs  # step out through the hit face (frag:380)
@@ -308,20 +323,23 @@ def _shadow_march(scene: Scene, p, cell, last_axis, step, cfg, sun, active):
         m = alive[:, None]
         cell_f = torch.where(m, cell + (oh2 * sstep).to(torch.int32), cell)
         tmax_f = torch.where(m, tmax + oh2 * sabs, tmax)
-        mat_n = torch.where(alive, _lookup(scene, cell_f), mat)
+        mat_n = torch.where(alive, lookup(cell_f), mat)
         fl = scene.flags[mat_n.long()]
         alive_n = alive & ((mat_n == 0) | ((fl & liquid_bit) > 0))
         return cell_f, tmax_f, mat_n, alive_n
 
     mat0 = torch.zeros(p.shape[0], dtype=torch.int32, device=p.device)
-    _, _, mat, _ = _march_loop(body, (cell, tmax, mat0, active), lambda c: c[3], cfg.shadow_steps)
+    _, _, mat, _ = _march_loop(body, (cell, tmax, mat0, active), lambda c: c[3], cfg.shadow_steps,
+                               any_fn)
     return mat != 0
 
 
-def _ao_march(scene: Scene, p, normal, cfg: RenderConfig):
+def _ao_march(scene: Scene, p, normal, cfg: RenderConfig, lookup_fn=None):
     """Hemisphere occlusion (renderer.py:350): K short rays from the hit point
     (the reference's light_scattering pass, done properly), ``ao_steps``
-    voxel steps each. Returns the occluded fraction f32[N]."""
+    voxel steps each. Returns the occluded fraction f32[N]. ``lookup_fn``
+    overrides the voxel lookup (the sharded paths' slab lookup)."""
+    lookup = lookup_fn if lookup_fn is not None else (lambda c: _lookup(scene, c))
     N = p.shape[0]
     dirs = oriented_dirs(normal)  # [N, K, 3]
     K = dirs.shape[1]
@@ -334,16 +352,19 @@ def _ao_march(scene: Scene, p, normal, cfg: RenderConfig):
         oh = _onehot(_argmin_axis(tmax), p.dtype)
         tmax = tmax + oh * sabs
         cell = cell + (oh * sstep).to(torch.int32)
-        hit = hit | (_lookup(scene, cell) != 0)
+        hit = hit | (lookup(cell) != 0)
     return hit.reshape(N, K).to(p.dtype).mean(dim=1)
 
 
-def shade(scene: Scene, s: _March, raw0, mat0, sun, cfg: RenderConfig, shadow_fn):
+def shade(scene: Scene, s: _March, raw0, mat0, sun, cfg: RenderConfig, shadow_fn,
+          ao_lookup_fn=None):
     """Post-march shading + overlays (renderer.shade, :379-452), hemisphere
     AO included (``cfg.enable_ao``), shared by every render mode.
 
     ``shadow_fn(p, cell, last_axis, step, active) -> bool[N]`` supplies the
     sun-shadow result (the fused kernel computes it in the same launch).
+    ``ao_lookup_fn`` overrides the AO march's voxel lookup (the sharded
+    paths' slab lookup).
     """
     f32 = torch.float32
     hit = s.mat != 0
@@ -373,7 +394,7 @@ def shade(scene: Scene, s: _March, raw0, mat0, sun, cfg: RenderConfig, shadow_fn
 
     normal = _onehot(s.last_axis, f32) * -s.step
     if cfg.enable_ao:
-        occ = _ao_march(scene, p, normal, cfg)
+        occ = _ao_march(scene, p, normal, cfg, lookup_fn=ao_lookup_fn)
         hit_col = hit_col * (1.0 - 0.6 * occ)[:, None]
 
     sky_col = skybox(s.dir, sun) * s.color_mod

@@ -10,6 +10,7 @@ host structures equal; frames within ``assert_images_close``.
 
 import io
 import os
+from dataclasses import replace
 
 import jax.numpy as jnp
 import numpy as np
@@ -290,11 +291,22 @@ def test_session_fused_renders_a_wide_palette_without_fallback():
 
 
 def test_session_rejects_unported_and_unknown_modes():
+    """``spatial`` and ``handoff`` (once rejected as not ported) render in a
+    plain process on a one-rank CPU group of its own: spatial equal to the
+    reference frame with AO, handoff to the fast frame (AO off, as the
+    reference's session renders it). ``pallas`` is still rejected."""
+    from raytracing_test_tpu_torch.parallel import mesh as meshlib
+
     s = WorldSession(WorldConfig(width=16, length=16, grid_shape=(64, 64, 64)),
                      use_native=False, device="cpu")
-    for mode in ("spatial", "handoff"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            s.render(RenderConfig(width=8, height=8), mode=mode)
+    rcfg = RenderConfig(width=8, height=8, enable_ao=True)
+    try:
+        assert torch.equal(s.render(rcfg, mode="spatial"), s.render(rcfg, mode="reference"))
+        no_ao = replace(rcfg, enable_ao=False)
+        assert torch.equal(s.render(rcfg, mode="handoff"), s.render(no_ao, mode="fast"))
+        assert meshlib.world_size() == 1
+    finally:
+        meshlib.shutdown()
     with pytest.raises(ValueError, match="unknown render mode 'pallas'"):
         s.render(RenderConfig(width=8, height=8), mode="pallas")
 
