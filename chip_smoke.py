@@ -70,9 +70,12 @@ Phases (any failure raises, and the script exits non-zero):
                    the first two rounds of the primary and the shadow march;
                    integer fields equal, float fields equal to the bit;
                 b. frame parity: the brick frame on the kernels (the hooks
-                   of render_rays_bricks_pallas, brick_advance in place,
-                   each of its launches also held to the bit to
-                   brick_advance_plain and to brick_advance on a copy)
+                   of render_rays_bricks_pallas, both kernels in place;
+                   every brick_fine launch, the glue passes' launches over
+                   their event lanes too, held to the bit to
+                   brick_fine_plain on its input, state and evt; every
+                   brick_advance launch to brick_advance_plain and to
+                   brick_advance on a copy)
                    against render_rays_fused on the fused kernel and
                    against the plain brick path (render/bricks.py) on the
                    card, in four configurations: full, lean, the water view
@@ -89,10 +92,17 @@ Phases (any failure raises, and the script exits non-zero):
                    lanes that advance, advancing iterations, lane efficiency
                    in natural order and in 8x4 tiles, device time from
                    torch.profiler, the launch's own bound) and the frame's
-                   lost time, the sum of (ms - bound); per launch (the first
-                   round's advance input on fresh copies, device time; the
-                   second round's fine input, CUDA events; kernel and plain
-                   version), per frame (rounds, glue passes and launches,
+                   lost time, the sum of (ms - bound); every brick_fine
+                   launch of the same two frames (lanes launched, live and
+                   changed, events, DDA steps, device time, the bound of
+                   what its inputs need; summed by march and pass, with
+                   the lost time; each launch at 512^2), beside what
+                   launches over all lanes would need and what a kernel
+                   that loads and stores every lane's whole state moves;
+                   per launch (the first round's advance
+                   input and the second round's fine input, on fresh
+                   copies, device time; kernel and plain version), per
+                   frame (rounds, glue passes and launches,
                    primary and shadow; the per-lane loop caps checked), the
                    brick frame against the fused frame and the plain brick
                    frame, and one torch.profiler pass over the brick frame;
@@ -236,16 +246,17 @@ Phases (any failure raises, and the script exits non-zero):
 After phase 12 the kernels are ordered by the time they lose on the main
 paths: launches x (ms - bound) at the shape each launch has (512^2 frames,
 64^2 target views, the train batches' seeds and window pairs, the 512^2
-brick frame's launches, both prox passes); for brick_advance the 512^2
-frame's own launches, each with its time and bound (8d).
+brick frame's launches, both prox passes); for the two brick kernels the
+512^2 frame's own launches, each with its time and bound (8d).
 
 The line before the last holds the card's name and power limit, the one
 before it the per-kernel JSON (time, launches, plain time and the bound:
 the larger of the bytes the kernel must move over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, the H100 SXM data-sheet peaks; the brick
 kernels' times and bounds are per launch, on the inputs named in 8d: for
-brick_advance the first round's, with every lane live); the last line is
-the ok JSON.
+brick_advance the first round's, with every lane live; for brick_fine the
+second round's, its bound counted from what that launch's inputs need);
+the last line is the ok JSON.
 """
 
 from __future__ import annotations
@@ -987,12 +998,31 @@ def checked_advance(name):
     return hook
 
 
+def checked_fine(name):
+    """brick_march's fine hook as the main path has it (fine_loop), with every
+    brick_fine launch held to the bit to brick_fine_plain on its input
+    (fine_loop's check), state and evt. The hook's ``errs`` collects each
+    launch's largest float difference."""
+    from raytracing_test_tpu_torch.kernels import brick_kernels as bk
+
+    def check(sc, s_in, blin, luts, budget, lanes, out, evt):
+        p, pe = bk.brick_fine_plain(sc, s_in, blin, luts, budget)
+        hook.errs.append(state_parity(f"brick_fine {name} launch {len(hook.errs)}", out, p, evt, pe,
+                                      verbose=False))
+
+    def hook(sc, s, blin, cfg, budget, shadow, t):
+        return bk.fine_loop(sc, s, blin, cfg, budget, shadow, t, check=check)
+
+    hook.errs = []
+    return hook
+
+
 def brick_frame_parity(name, scene, pos, dirn, rcfg, time_s, card):
     """(b) The brick frame on the kernels against the fused frame and the
     plain brick frame on the card: render_rays_bricks_pallas's hooks, with
-    every brick_advance launch held to its plain version
-    (checked_advance). Returns ({reference: max_abs_err}, aux, ray
-    directions)."""
+    every brick_fine and brick_advance launch held to its plain version
+    (checked_fine, checked_advance). Returns ({reference: max_abs_err}, aux,
+    ray directions)."""
     from raytracing_test_tpu_torch.kernels import brick_kernels as bk
     from raytracing_test_tpu_torch.kernels import fused_march as fm
     from raytracing_test_tpu_torch.render import bricks
@@ -1001,13 +1031,14 @@ def brick_frame_parity(name, scene, pos, dirn, rcfg, time_s, card):
     dev = scene.device
     cam = Camera(pos=torch.tensor(pos, device=dev), dir=torch.tensor(dirn, device=dev))
     dirs = ray_directions(cam, rcfg.width, rcfg.height)
-    adv = checked_advance(name)
+    adv, fine = checked_advance(name), checked_fine(name)
     cb, ab = bricks.render_rays_bricks(scene, cam.pos, dirs, rcfg, time_s=time_s,
-                                       fine_loop=bk.fine_loop, brick_loop=adv)
+                                       fine_loop=fine, brick_loop=adv)
     torch.cuda.synchronize()
-    print(f"parity bricks {name}: every brick_advance launch of the frame ({len(adv.errs)}) "
-          f"equal to brick_advance_plain, in place and on a copy, max_abs_err "
-          f"{max(adv.errs):.3e} | {card}")
+    print(f"parity bricks {name}: every brick_fine launch of the frame ({len(fine.errs)}) equal "
+          f"to brick_fine_plain (state and evt), max_abs_err {max(fine.errs):.3e}; every "
+          f"brick_advance launch ({len(adv.errs)}) equal to brick_advance_plain, in place and on "
+          f"a copy, max_abs_err {max(adv.errs):.3e} | {card}")
     if not (torch.isfinite(cb).all() and cb.shape == (rcfg.width * rcfg.height, 3)):
         raise AssertionError(f"bricks {name}: frame not finite or of the wrong shape")
     errs = {}
@@ -1022,7 +1053,7 @@ def brick_frame_parity(name, scene, pos, dirn, rcfg, time_s, card):
         frac = {k: float(v.float().mean()) for k, v in eq.items()}
         frac_hit = {k: float(v[hit].float().mean()) if bool(hit.any()) else 1.0
                     for k, v in eq.items()}
-        errs[ref] = max(float(d.max()), max(adv.errs))
+        errs[ref] = max(float(d.max()), max(adv.errs), max(fine.errs))
         print(f"parity bricks {name} vs {ref}: max_abs_err {d.max():.3e} bad_frac {bad:.6f}; "
               "equal on all rays " + " ".join(f"{k} {v:.6f}" for k, v in frac.items())
               + "; on hit rays " + " ".join(f"{k} {v:.6f}" for k, v in frac_hit.items())
@@ -1119,7 +1150,7 @@ def advance_launch_stats(scene, table, s, budget, width) -> dict:
     n = it.shape[0]
     live = int((~s.done).sum())
     changed = torch.zeros_like(s.done)
-    for f in bk.ADVANCE_WRITES:
+    for f in bk.WRITES:
         a, b = getattr(out, f), getattr(s, f)
         if a.is_floating_point():
             a, b = a.view(torch.int32), b.view(torch.int32)
@@ -1215,14 +1246,131 @@ def advance_frame(scene, pos, dirn, rcfg, card, label, reps=3):
     return sums
 
 
+def fine_launch_stats(scene, s_in, blin, luts, budget, lanes, out, evt) -> dict:
+    """What one brick_fine launch had to do (its input ``s_in``, its output
+    ``out``, ``evt``), and its bound from what its inputs need: each lane
+    launched (all N, or the K in ``lanes``) reads blin (4 B; a listed lane
+    also its list entry, 4 B) and writes evt (1 B); one in an occupied brick
+    (blin >= 0) also reads its done byte; one whose state or evt changes
+    reads its state (BRICK_STATE_IN) and writes it (BRICK_STATE_OUT); the
+    64-byte voxel rows of the bricks the live lanes stand in, the 32 bytes
+    of luts; 3 float32 operations per DDA step. ``full_bytes`` is the same
+    count for a launch over all N lanes, ``whole_bytes`` what a kernel moves
+    that loads and stores the whole state of every lane."""
+    from raytracing_test_tpu_torch.kernels import brick_kernels as bk
+
+    n = blin.shape[0]
+    sel = torch.ones(n, dtype=torch.bool, device=blin.device)
+    if lanes is not None:
+        sel = torch.zeros_like(sel)
+        sel[lanes.long()] = True
+    changed = evt.clone()
+    for f in bk.WRITES:
+        a, b = getattr(out, f), getattr(s_in, f)
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        changed |= (a != b).reshape(n, -1).any(dim=1)
+    if bool((changed & ~sel).any()):
+        raise AssertionError("brick_fine changed a lane it was not given")
+    occ = blin >= 0
+    live = occ & ~s_in.done & sel
+    rows = int(torch.unique(blin[live]).numel())
+    n_changed, n_occ = int(changed.sum()), int((occ & sel).sum())
+    k = int(sel.sum())
+    common = n_changed * (BRICK_STATE_IN + BRICK_STATE_OUT) + rows * 64 + luts.numel() * 4
+    nbytes = k * (4 + 1) + (4 * k if lanes is not None else 0) + n_occ + common
+    steps = int((out.steps - s_in.steps).sum())
+    ops = steps * BRICK_FINE_OPS_PER_STEP
+    return {"n": n, "launched": k, "live": int(live.sum()), "changed": n_changed,
+            "events": int(evt.sum()), "rows": rows, "steps": steps, "bytes": nbytes,
+            "bound": bound(nbytes, ops), "kind": "full" if lanes is None else "list",
+            "full_bytes": n * 5 + int(occ.sum()) + common,
+            "full_bound": bound(n * 5 + int(occ.sum()) + common, ops)[0],
+            "whole_bytes": n * (BRICK_STATE_IN + BRICK_STATE_OUT + 4 + 1) + rows * 64
+            + luts.numel() * 4}
+
+
+def fine_frame(scene, pos, dirn, rcfg, card, label, reps=3, each=False):
+    """Every brick_fine launch of one brick frame on the main path's hooks:
+    per launch its work and bound (fine_launch_stats, from fine_loop's
+    check; brick_frame_parity holds the same frames' launches to
+    brick_fine_plain), its device time (launch_device_ms over ``reps`` frames); summed over the
+    frame by march and pass (a round's first launch, the glue passes after
+    it), with the lost time, the sum of (ms - bound). ``each`` prints every
+    launch. Returns the sums {"launches", "ms", "bound", "lost"}."""
+    from raytracing_test_tpu_torch.kernels import brick_kernels as bk
+    from raytracing_test_tpu_torch.render import bricks
+    from raytracing_test_tpu_torch.render.camera import Camera, ray_directions
+
+    dev = scene.device
+    cam = Camera(pos=torch.tensor(pos, device=dev), dir=torch.tensor(dirn, device=dev))
+    dirs = ray_directions(cam, rcfg.width, rcfg.height)
+    stats = []
+
+    def check(sc, s_in, blin, luts, budget, lanes, out, evt):
+        stats.append(fine_launch_stats(sc, s_in, blin, luts, budget, lanes, out, evt))
+
+    def fine(sc, s, blin, cfg, budget, shadow, t):
+        first = len(stats)
+        out = bk.fine_loop(sc, s, blin, cfg, budget, shadow, t, check=check)
+        for k, st in enumerate(stats[first:]):
+            st["march"], st["pass"] = ("shadow" if shadow else "primary"), k
+        return out
+
+    bricks.render_rays_bricks(scene, cam.pos, dirs, rcfg, fine_loop=fine, brick_loop=bk.advance_loop)
+    ms = launch_device_ms(lambda: bk.render_rays_bricks_pallas(scene, cam.pos, dirs, rcfg),
+                          "brick_fine", reps, per_call=len(stats))
+    if len(ms) != len(stats):
+        raise AssertionError(f"{len(ms)} brick_fine launches profiled, {len(stats)} counted")
+    for st, t in zip(stats, ms):
+        st["ms"] = t
+    print(f"brick_fine, every launch of the {label} brick frame (device ms: torch.profiler, "
+          f"mean of {reps} frames) | {card}")
+    if each:
+        for i, st in enumerate(stats):
+            b, by = st["bound"]
+            print(f"  {i:3d} {st['march']:7s} pass {st['pass']:2d} ({st['kind']}): "
+                  f"{st['launched']:7d} lanes launched, {st['live']:7d} live, {st['changed']:7d} "
+                  f"change, {st['events']:6d} events, {st['steps']:8d} DDA steps; {st['ms']:.4f} ms, "
+                  f"bound {b:.4f} ({by}, {st['bytes']} B), share {b / st['ms']:.3f}")
+    groups = {}
+    for st in stats:
+        key = f"{st['march']} {'first launches' if st['pass'] == 0 else 'glue passes'}"
+        groups.setdefault(key, []).append(st)
+    for key, g in groups.items():
+        t, b = sum(s["ms"] for s in g), sum(s["bound"][0] for s in g)
+        print(f"  {key}: {len(g)} launches, {sum(s['launched'] for s in g)} lanes launched, "
+              f"{sum(s['live'] for s in g)} live, {sum(s['changed'] for s in g)} change, "
+              f"{sum(s['events'] for s in g)} events; {t:.4f} ms, bound {b:.4f}, lost "
+              f"{t - b:.4f} ms, share {b / t:.3f}")
+    top = sorted(stats, key=lambda s: -(s["ms"] - s["bound"][0]))[:5]
+    print("  most lost: " + "; ".join(
+        f"{s['march']} pass {s['pass']} {s['launched']} lanes {s['ms']:.4f} ms bound "
+        f"{s['bound'][0]:.4f}" for s in top))
+    sums = {"launches": len(ms), "ms": sum(ms), "bound": sum(s["bound"][0] for s in stats)}
+    sums["lost"] = sums["ms"] - sums["bound"]
+    need = sum(s["bytes"] for s in stats)
+    full = sum(s["full_bytes"] for s in stats)
+    whole = sum(s["whole_bytes"] for s in stats)
+    print(f"brick_fine {label} frame: {sums['launches']} launches "
+          f"({sum(s['kind'] == 'list' for s in stats)} over a list of event lanes), "
+          f"{sum(s['launched'] for s in stats)} lane slots launched, "
+          f"{sum(s['changed'] for s in stats)} lanes change; {sums['ms']:.4f} ms, bound "
+          f"{sums['bound']:.4f} ms ({need} B needed), lost {sums['lost']:.4f} ms, share "
+          f"{sums['bound'] / sums['ms']:.3f}; launches over all lanes would need {full} B "
+          f"({sum(s['full_bound'] for s in stats):.4f} ms); loading and storing every lane's "
+          f"whole state moves {whole} B ({whole / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory "
+          f"rate) | {card}")
+    return sums
+
+
 def brick_launches(scene, inputs, rcfg, card, label):
     """brick_advance on the first round's and brick_fine on the second
     round's primary states (``inputs`` of brick_kernel_parity), with their
-    bounds from the data: {kernel: (ms per launch, bound)}. brick_advance
-    works in place, so each of its raw launches gets a fresh copy of the
-    state and its device time is read by torch.profiler; brick_fine is
-    timed on raw launches of fixed inputs with CUDA events (no wrapper on
-    the host between them)."""
+    bounds from the data: {kernel: (ms per launch, bound)}. Both kernels
+    work in place, so each call of their public wrappers copies the state
+    first; only the kernel's device time counts (torch.profiler). The
+    brick_fine bound is what that launch's inputs need (fine_launch_stats)."""
     from raytracing_test_tpu_torch.kernels import brick_kernels as bk
     from raytracing_test_tpu_torch.kernels import build
 
@@ -1231,7 +1379,6 @@ def brick_launches(scene, inputs, rcfg, card, label):
     s_fine, blin_fine, _ = inputs[("primary", 2)]
     n = s_adv.cell.shape[0]
     luts = bk._prop_luts(scene, False, rcfg.enable_materials)
-    fine_args, *keep_f = bk._fine_args(scene, s_fine, blin_fine, luts, rcfg.max_steps)
 
     def advance_fresh():
         fresh = bk.writable(s_adv)
@@ -1240,28 +1387,27 @@ def brick_launches(scene, inputs, rcfg, card, label):
             raise AssertionError("a timing launch of brick_advance failed")
         del fresh  # held until the launch is queued
 
-    if lib.brick_fine_launch(*fine_args) != 0:
-        raise AssertionError("a timing launch of brick_fine failed")
     adv_ms = launch_device_ms(advance_fresh, "brick_advance", reps=20)[0]
-    fine_ms = cuda_ms(lambda: lib.brick_fine_launch(*fine_args), reps=20, warmup=3)
+    fine_ms = launch_device_ms(lambda: bk.brick_fine(scene, s_fine, blin_fine, luts,
+                                                     rcfg.max_steps), "brick_fine", reps=20)[0]
     iters = int(advance_iterations(scene, scene.brick_dist, s_adv, rcfg.max_steps).sum())
     adv_bytes = n * (BRICK_STATE_IN + BRICK_STATE_OUT) + scene.brick_dist.numel()
     adv_bound = bound(adv_bytes, iters * BRICK_ADVANCE_OPS_PER_ITER)
-    fine_out, _ = bk.brick_fine_plain(scene, s_fine, blin_fine, luts, rcfg.max_steps)
-    fine_steps = int((fine_out.steps - s_fine.steps).sum())
-    rows = int(torch.unique(blin_fine[blin_fine >= 0]).numel())
-    fine_bytes = n * (BRICK_STATE_IN + BRICK_STATE_OUT + 4 + 1) + rows * 64 + luts.numel() * 4
-    fine_bound = bound(fine_bytes, fine_steps * BRICK_FINE_OPS_PER_STEP)
+    fine_out, fine_evt = bk.brick_fine_plain(scene, s_fine, blin_fine, luts, rcfg.max_steps)
+    st = fine_launch_stats(scene, s_fine, blin_fine, luts, rcfg.max_steps, None, fine_out, fine_evt)
+    fine_bound = st["bound"]
     for name, k_ms, nbytes, work, b in (
             ("brick_advance", adv_ms, adv_bytes,
              f"round 1, {n} lanes, {iters} advancing iterations", adv_bound),
-            ("brick_fine", fine_ms, fine_bytes,
-             f"round 2, {int((blin_fine >= 0).sum())} lanes in {rows} occupied bricks, "
-             f"{fine_steps} DDA steps", fine_bound)):
+            ("brick_fine", fine_ms, st["bytes"],
+             f"round 2, {st['live']} lanes live in {st['rows']} occupied bricks, "
+             f"{st['changed']} change, {st['steps']} DDA steps", fine_bound)):
         print(f"timing {name} per launch, {label} ({work}): kernel {k_ms:.4f} ms; bound "
               f"{nbytes} bytes -> {b[0]:.4f} ms ({b[1]}), kernel at {b[0] / k_ms:.3f} of it "
               f"| {card}")
-    del keep_f
+    print(f"  brick_fine on that input: loading and storing every lane's whole state moves "
+          f"{st['whole_bytes']} bytes ({st['whole_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms at the "
+          f"memory rate) | {card}")
     return {"brick_advance": (adv_ms, adv_bound), "brick_fine": (fine_ms, fine_bound)}
 
 
@@ -1329,6 +1475,8 @@ def bricks_phase(dev, card, side, scene, o_full, wscene, wpos, wdir, cli):
     cli_view = (CameraConfig().pos, yaw_pitch_dir(d.yaw, d.pitch))
     advance_frame(scene, BENCH_POS, BENCH_DIR, full, card, f"{side}^2 bench")
     adv_cli = advance_frame(scene, *cli_view, cfg_cli, card, f"{d.width}^2 CLI")
+    fine_frame(scene, BENCH_POS, BENCH_DIR, full, card, f"{side}^2 bench")
+    fine_cli = fine_frame(scene, *cli_view, cfg_cli, card, f"{d.width}^2 CLI", each=True)
     at_side = brick_launches(scene, inputs, full, card, f"{side}^2 bench view")
     adv_ms, adv_bound = at_side["brick_advance"]
     fine_ms, fine_bound = at_side["brick_fine"]
@@ -1356,7 +1504,7 @@ def bricks_phase(dev, card, side, scene, o_full, wscene, wpos, wdir, cli):
               + f" | {card}")
     per_name = profile_step(lambda: bk.render_image_bricks_pallas(scene, cam, full, 0.0), card,
                             steps=3, label=f"brick frame full {side}x{side}")
-    for k in ("brick_advance", "brick_fine_kernel"):
+    for k in ("brick_advance", "brick_fine"):
         v = [t for name, ts in per_name.items() if k in name for t in ts]
         print(f"  {k}: {len(v) / 3:.1f} launches and {sum(v) / 3e3:.4f} ms of device time per "
               f"frame, {sum(v) / max(len(v), 1) / 1e3:.4f} ms per launch | {card}")
@@ -1365,7 +1513,7 @@ def bricks_phase(dev, card, side, scene, o_full, wscene, wpos, wdir, cli):
     s_cli = march_state(scene, *cli_view, d.width)
     _, inputs_cli = brick_kernel_parity(scene, s_cli, cfg_cli,
                                         fm.fused_march_call(scene, s_cli, cfg_cli, 0.0))
-    at_cli = brick_launches(scene, inputs_cli, cfg_cli, card, f"{d.width}^2 render view")
+    brick_launches(scene, inputs_cli, cfg_cli, card, f"{d.width}^2 render view")
     common = {"route": "cuda", "source": "raytracing_test_tpu_torch/csrc/brick_march.cu",
               "max_abs_err": max_err, "library_ms": None}
     return [
@@ -1375,7 +1523,7 @@ def bricks_phase(dev, card, side, scene, o_full, wscene, wpos, wdir, cli):
         dict(name="brick_fine", replaces="raytracing_test_tpu/kernels/brick_kernels.py:235",
              launches=launches["brick_fine"], ms=fine_ms, plain_ms=fine_plain_ms,
              bound_ms=fine_bound[0], bound_by=fine_bound[1], **common),
-    ], {k: (v[0], v[1][0]) for k, v in at_cli.items()}, launches, adv_cli
+    ], launches, adv_cli, fine_cli
 
 
 def march_parity(name, k, p, card) -> float:
@@ -2564,7 +2712,7 @@ def run(dev: torch.device, side: int) -> int:
     launches = serve_launches + train["march_launches"]
 
     # 8. the brick engine
-    brick_kernels, bricks_cli, brick_counts, adv_cli = bricks_phase(
+    brick_kernels, brick_counts, adv_cli, fine_cli = bricks_phase(
         dev, card, side, scene, o_full, wscene, wpos, wdir, cli)
 
     kernels = [{
@@ -2642,8 +2790,9 @@ def run(dev: torch.device, side: int) -> int:
         ("brick_advance, 512^2 brick frame (each launch's own ms and bound, averaged)",
          brick_counts["brick_advance"],
          (adv_cli["ms"] / adv_cli["launches"], adv_cli["bound"] / adv_cli["launches"])),
-        ("brick_fine, 512^2 brick frame (round-2 launch)", brick_counts["brick_fine"],
-         bricks_cli["brick_fine"]),
+        ("brick_fine, 512^2 brick frame (each launch's own ms and bound, averaged)",
+         brick_counts["brick_fine"],
+         (fine_cli["ms"] / fine_cli["launches"], fine_cli["bound"] / fine_cli["launches"])),
         (f"fused_march prox, {side // 4}^2 coarse pass", 1, prox_passes["coarse"]),
         (f"fused_march prox, {side}^2 full pass", 1, prox_passes["full"]),
     ]

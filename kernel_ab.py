@@ -1,5 +1,5 @@
-"""Old-against-new timing of the port's march, window and brick_advance
-kernels on one CUDA card, each tree of the port in a process of its own.
+"""Old-against-new timing of the port's march, window and brick kernels on
+one CUDA card, each tree of the port in a process of its own.
 
     mkdir -p _ab/old && git archive <commit> raytracing_test_tpu_torch | tar -x -C _ab/old
     python3 kernel_ab.py _ab/old .
@@ -10,7 +10,7 @@ one; ``_ab/`` is gitignored). A tree's process imports that tree's
 package, builds its kernels from that tree's sources into its own
 ``_build/``, and drives the same inputs through the wrappers that every
 such tree has (``fused_march_call``, ``_launch_fwd``, ``_launch_bwd``,
-``brick_advance``), at the shapes the main paths launch:
+``brick_advance``, ``brick_fine``), at the shapes the main paths launch:
 
   march       -- from the bench camera: 1024^2 full, full without shadows,
                  lean (the seed's fine pass), both prox passes (1024^2 and
@@ -30,7 +30,14 @@ such tree has (``fused_march_call``, ``_launch_fwd``, ``_launch_bwd``,
                  path's states) of the 1024^2 bench frame and of the CLI's
                  512^2 frame. A tree whose brick_advance works in place
                  copies the state in each call; only the kernel's device
-                 time counts.
+                 time counts;
+  brick_fine  -- at the same two views, from the plain brick path's
+                 states: the input of round 2's first launch, of the
+                 march's first glue pass (the material glue applied to the
+                 event lanes of the launch before; a tree whose
+                 brick_fine takes ``lanes`` runs that pass over the event
+                 lanes only, an older tree over all lanes; the CLI's view
+                 has no material event) and of round 8's first launch.
 
 The trees run in turns, forward then back (A, B, ..., B, A), so every tree
 is timed before and after every other. In each turn a kernel's time is the
@@ -40,12 +47,14 @@ kernel: it is timed apart, with CUDA events), beside the wrapper's own
 time per call (CUDA events, host work included). Each turn also times the
 paths these kernels serve, with CUDA events around whole calls and as the
 device time of all their kernels (torch.profiler): the CLI's 512^2 brick
-frame, the 1024^2 bench brick frame and the training loss+backward at
-1024^2 x 24 on the bench seeds.
+frame, the 1024^2 bench brick frame (each with the summed device time of
+its brick_fine and brick_advance launches) and the training loss+backward
+at 1024^2 x 24 on the bench seeds.
 
 In its first turn each tree is held to its own plain versions: every march
-output and every brick_advance output equal to the bit (fused_march_plain,
-brick_advance_plain), window_fwd's outputs exact against window_plain,
+output and every brick_advance and brick_fine output equal to the bit
+(fused_march_plain, brick_advance_plain, brick_fine_plain over all lanes),
+window_fwd's outputs exact against window_plain,
 window_bwd's gradients within 1e-5 max-scaled of window_plain's autograd.
 It prints a digest of each
 launch's outputs (equal digests: equal bits across trees), its nvcc
@@ -73,8 +82,10 @@ import chip_smoke as cs
 SIDE, CF = cs.FULL, 4  # frame side, coarse factor of the seed
 REPS = 20  # calls of each wrapper per shape and turn
 KERNEL_NAMES = {"march": "fused_march_kernel", "window_fwd": "window_fwd",
-                "window_bwd": "window_bwd_kernel", "brick_advance": "brick_advance"}
+                "window_bwd": "window_bwd_kernel", "brick_advance": "brick_advance",
+                "brick_fine": "brick_fine"}
 ROUNDS = (1, 3)  # the brick_advance launches timed: their round in the primary march
+FINE_ROUNDS = (2, 8)  # the brick_fine launches timed: round 2 (and its first glue pass), a late round
 
 
 def march_cases(pkg, scene, dev):
@@ -177,12 +188,70 @@ def brick_cases(scene, dev):
     return cases
 
 
+def glue(scene, s, evt, rcfg, time_s):
+    """The material glue between two brick_fine launches (fine_loop's), from
+    the render functions every tree has."""
+    from raytracing_test_tpu_torch.render import bricks
+    from raytracing_test_tpu_torch.render.renderer import classify, material_step
+
+    fl = scene.flags[s.mat.long()]
+    is_refl, is_refr, _ = classify(fl, s.mat, evt, rcfg)
+    d, st, ab, tm, seg, lt, cm, ior, refl = material_step(s, is_refl, is_refr, fl, rcfg, time_s)
+    s = s._replace(dir=d, step=st, abs_delta=ab, tmax=tm, seg_origin=seg, last_t=lt, color_mod=cm,
+                   ior=ior, reflected=refl)
+    return bricks.dda_step(s, evt, rcfg.max_steps)
+
+
+def fine_cases(pkg, scene, dev):
+    """[(name, state, blin, luts, budget, lanes)]: brick_fine's input in the
+    primary march of the plain brick path (its fine phases as fine_loop runs
+    them) at the 1024^2 bench view and the CLI's 512^2 view: the first
+    launch of the rounds in FINE_ROUNDS and the march's first glue pass,
+    with its event lanes (``lanes``, None for a launch over all)."""
+    from raytracing_test_tpu_torch.app import cli
+    from raytracing_test_tpu_torch.config import CameraConfig, RenderConfig
+    from raytracing_test_tpu_torch.render import bricks, fast
+    from raytracing_test_tpu_torch.render.camera import yaw_pitch_dir
+
+    bk = pkg["bk"]
+    rd = cli.build_parser().parse_args(["render"])
+    cases = []
+    for label, pos, dirn, side in (("bench", cs.BENCH_POS, cs.BENCH_DIR, SIDE),
+                                   ("CLI", CameraConfig().pos, yaw_pitch_dir(rd.yaw, rd.pitch),
+                                    rd.width)):
+        rcfg = RenderConfig(width=side, height=side)
+        budget = rcfg.max_steps
+        luts = bk._prop_luts(scene, False, True)
+        s, _, _ = fast.start_cell(scene, cs.march_state(scene, pos, dirn, side))
+        glued = False
+        for r in range(1, max(FINE_ROUNDS) + 1):
+            blin = bricks.occupied_brick(scene, scene.brick_dist, s)
+            live = int((~s.done).sum())
+            if r in FINE_ROUNDS:
+                cases.append((f"{side}^2 {label} frame, round {r} first launch ({live} of "
+                              f"{s.cell.shape[0]} lanes live)", s, blin, luts, budget, None))
+            s, evt = bk.brick_fine_plain(scene, s, blin, luts, budget)
+            passes = 0
+            while bool(evt.any()) and passes < 64:
+                lanes = torch.nonzero(evt).flatten().to(torch.int32)
+                s = glue(scene, s, evt, rcfg, 0.0)
+                if not glued:
+                    glued = True
+                    cases.append((f"{side}^2 {label} frame, round {r} first glue pass "
+                                  f"({lanes.numel()} event lanes)", s, blin, luts, budget, lanes))
+                s, evt = bk.brick_fine_plain(scene, s, blin, luts, budget)
+                passes += 1
+            s = bricks._brick_loop(scene, scene.brick_dist, s, budget)
+    return cases
+
+
 def end_to_end_ms(scene, ds, cam, dirs, dev, card) -> dict:
-    """{path: (ms per call, device busy ms per call)} of the CLI's 512^2
-    brick frame, the 1024^2 bench brick frame and the training
-    loss+backward at 1024^2 x 24 on the bench seeds: CUDA events around
-    whole calls (host work included), and the sum of the device time of
-    every kernel of a call (torch.profiler, 3 calls)."""
+    """{path: (ms per call, device busy ms per call, {kernel: its device ms
+    per call})} of the CLI's 512^2 brick frame, the 1024^2 bench brick frame
+    and the training loss+backward at 1024^2 x 24 on the bench seeds: CUDA
+    events around whole calls (host work included), the sum of the device
+    time of every kernel of a call, and of brick_fine's and brick_advance's
+    launches (torch.profiler, 3 calls)."""
     from raytracing_test_tpu_torch.app import cli
     from raytracing_test_tpu_torch.config import CameraConfig, RenderConfig
     from raytracing_test_tpu_torch.kernels import brick_kernels as bk
@@ -215,7 +284,9 @@ def end_to_end_ms(scene, ds, cam, dirs, dev, card) -> dict:
     for name, (fn, reps) in paths.items():
         wall = cs.cuda_ms(fn, reps=reps, warmup=1)
         per_name = cs.profile_step(fn, card, steps=3, label=name)
-        out[name] = (wall, sum(sum(v) for v in per_name.values()) / 3 / 1e3)
+        kernels = {k: sum(sum(v) for n, v in per_name.items() if k in n) / 3 / 1e3
+                   for k in ("brick_fine", "brick_advance")}
+        out[name] = (wall, sum(sum(v) for v in per_name.values()) / 3 / 1e3, kernels)
     return out
 
 
@@ -344,7 +415,7 @@ def worker(tree: Path, first: bool, out_path: Path) -> int:
     for nb in (cs.TRAIN_BATCH, cs.CLI_BATCH):
         idx = torch.from_numpy(rng.integers(0, origins.shape[0], nb)).to(dev)
         batches[nb] = (origins[idx].contiguous(), rdirs[idx].contiguous())
-    pkg = {"fm": fm, "fw": fw, "batches": batches}
+    pkg = {"fm": fm, "fw": fw, "bk": bk, "batches": batches}
     tiles = "image_w" in inspect.signature(fm.fused_march_call).parameters
     result["tiles"] = tiles
     mcases, cam, dirs = march_cases(pkg, scene, dev)
@@ -382,6 +453,20 @@ def worker(tree: Path, first: bool, out_path: Path) -> int:
             cs.state_parity(f"  {case}", out, bk.brick_advance_plain(scene, scene.brick_dist, s,
                                                                      budget))
         calls.append((case, "brick_advance", fn))
+    lists = "lanes" in inspect.signature(bk.brick_fine).parameters
+    result["fine_lists"] = lists
+    for name, s, blin, luts, budget, lanes in fine_cases(pkg, scene, dev):
+        case = f"brick_fine {name}"
+        kw = {"lanes": lanes} if lists and lanes is not None else {}
+        fn = lambda s=s, blin=blin, luts=luts, budget=budget, kw=kw: bk.brick_fine(
+            scene, s, blin, luts, budget, **kw)
+        out, evt = fn()
+        result["digest"][case] = digest({**{f: getattr(out, f) for f in cs.STATE_FIELDS},
+                                         "evt": evt})
+        if first:
+            p, pe = bk.brick_fine_plain(scene, s, blin, luts, budget)
+            cs.state_parity(f"  {case}", out, p, evt, pe)
+        calls.append((case, "brick_fine", fn))
     for name, _, fn in calls:
         result["wrapper_ms"][name] = cs.cuda_ms(fn, reps=REPS, warmup=3)
     result["ms"] = profiled_ms(calls)
@@ -442,8 +527,10 @@ def main() -> int:
     for case in runs[base][0]["e2e_ms"]:
         print(f"  {case}:")
         for tree, rs in runs.items():
-            (w0, d0), (w1, d1) = (r["e2e_ms"][case] for r in rs)
-            print(f"    {w0:.4f} / {w1:.4f}; device busy {d0:.4f} / {d1:.4f}: {tree}")
+            (w0, d0, k0), (w1, d1, k1) = (r["e2e_ms"][case] for r in rs)
+            print(f"    {w0:.4f} / {w1:.4f}; device busy {d0:.4f} / {d1:.4f}"
+                  + "".join(f"; {k} {k0[k]:.4f} / {k1[k]:.4f}" for k in k0 if k0[k] or k1[k])
+                  + f": {tree}")
     print(card)
     print(json.dumps({"card": card, "runs": runs}))
     return 0

@@ -23,16 +23,19 @@
 // three-step unroll that spared a cross-lane any(), and the SMEM scalar
 // packing. The loop caps of the TPU (per tile) are caps per lane here; the
 // step budgets end every lane long before them: each brick iteration that
-// advances adds at least one step, and a 4^3 brick holds at most ten cells
-// of a ray.
+// advances adds at least one step, and a ray crosses at most 3 * edge - 2
+// cells of a brick (10 of a 4^3 brick, 46 of the largest, 16^3), so no lane
+// stops on kFineCap inside its brick.
 //
-// What bounds it on this card: dependent loads per ray, a 131 KB distance
+// What bounds them on this card: dependent loads per ray, a 131 KB distance
 // table and the 64-byte voxel rows of the bricks a ray meets, all resident
 // in L2 (brick_mat is 8.4 MB for the default world), plus warp divergence
-// between rays that settle in one iteration and rays that take many. The
-// host loop around the two kernels (one launch each per round, a sync per
-// round and per glue pass) costs more than the kernels at 1024^2. Fusing
-// the rounds and the glue into one launch is later work.
+// between rays that settle in one iteration and rays that take many. Most
+// lanes of a launch have nothing to do (done, in air, or without an event
+// in a glue pass), so what such a lane reads and writes sets much of a
+// launch's time. The host loop around the two kernels (one launch each per
+// round, a sync per round and per glue pass) costs more than the kernels at
+// 1024^2. Fusing the rounds and the glue into one launch is later work.
 //
 // brick_advance's design for this card (each step timed against the
 // kernel it replaced on the card, PERF.md):
@@ -51,6 +54,34 @@
 //    round. The longest lane's chain of dependent iterations (a table load,
 //    two IEEE divisions) sets the later rounds' time.
 //
+// brick_fine's design for this card (each step timed on the card, PERF.md):
+//  - In place, like brick_advance (fine_in_place). A lane with blin < 0
+//    reads its 4-byte blin, writes evt = 0 and returns; a done lane also
+//    reads its done byte; a lane out of its brick also its cell. Only a
+//    lane inside its brick loads the state, and it stores only the fields
+//    that changed: the DDA fields if it stepped, mat if it differs, done if
+//    it hit or ran out of budget. Loading and storing the whole state of
+//    every lane moved 65 + 41 + 5 bytes a lane, most of them for nothing.
+//  - The glue passes launch over their event lanes only. A launch can
+//    append the lanes whose evt it sets to an int32 list (one warp-
+//    aggregated atomicAdd on a device counter per warp with events); the
+//    wrapper reads that count back (the sync that stood for evt.any()) and
+//    the next pass runs K threads over the list, not N. Every other lane is
+//    done, out of its brick or without one, and would come out unchanged
+//    with evt = 0: no lane stops on kFineCap inside its brick. The order of
+//    the list changes from run to run; each lane's result depends on that
+//    lane alone, so the outputs do not. A launch zeroes the other list's
+//    counter (the one the pass after it appends to); the wrapper reads each
+//    count before it launches the next pass.
+//  - One dependent one-byte load of the brick's voxel row per DDA step
+//    (the rows a launch touches stay in L2).
+//  - Tried and dropped (timed against this design on the card, kernel_ab.py,
+//    PERF.md section 6): the 64-byte row of a 4^3 brick loaded once,
+//    as four 16-byte loads, with each step's byte selected from registers.
+//    It took 55 registers instead of 46 (9 blocks per SM instead of 10) and
+//    was 5-7% slower on the round-2 launches, which hold most of the work;
+//    a lane reads only a few of the 64 voxels of its brick.
+
 // Arithmetic: built with -fmad=false and IEEE division, every operation
 // rounds once, in the order of the PyTorch version, so DDA near-ties
 // resolve identically. The box crossing and the axis tie-break are the
@@ -65,6 +96,7 @@ namespace rb {
 
 constexpr int kBrickCap = 512;   // loop guard per lane (render/bricks.py _BRICK_CAP)
 constexpr int kFineCap = 64;     // loop guard per lane (render/bricks.py _FINE_CAP)
+static_assert(kFineCap > 3 * 16 - 2, "a lane must never stop on kFineCap inside a 16^3 brick");
 
 // The march state of render/renderer.py:_March that the kernels read.
 struct State {
@@ -257,6 +289,43 @@ RT_DEV bool fine_lane(const uint8_t* bmat, const uint32_t hit[4], const uint32_t
   return false;
 }
 
+// brick_fine on lane i of a writable march state (S and O name the same
+// tensors) -> the event flag. A lane without a brick reads its blin, a done
+// lane also its done byte, a lane out of its brick also its cell; each
+// returns with nothing written. A lane inside its brick loads the state,
+// marches, and stores the fields that changed.
+RT_DEV bool fine_in_place(const State& S, const Out& O, const uint8_t* bmat,
+                          const int32_t* luts, const int32_t* blin, const Grid& G, int budget,
+                          int i) {
+  const int b = RT_LDG(blin + i);
+  if (b < 0 || S.done[i]) return false;
+  const int wx = S.cell[3 * i] & 1023, wy = S.cell[3 * i + 1] & 1023, wz = S.cell[3 * i + 2] & 1023;
+  if (!(wx < G.sx && wy < G.sy && wz < G.sz) || brick_lin(G, wx, wy, wz) != b) return false;
+  uint32_t hit[4], evt[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    hit[k] = (uint32_t)RT_LDG(luts + k);
+    evt[k] = (uint32_t)RT_LDG(luts + 4 + k);
+  }
+  Lane r;
+  load(S, i, r);
+  const int mat0 = r.mat, steps0 = r.steps;
+  const bool ev = fine_lane(bmat, hit, evt, G, budget, b, r);
+  if (r.steps != steps0) {  // it stepped: the DDA fields
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      O.cell[3 * i + k] = r.c[k];
+      O.tmax[3 * i + k] = r.t[k];
+    }
+    O.lt[i] = r.lt;
+    O.la[i] = r.la;
+    O.steps[i] = r.steps;
+  }
+  if (r.mat != mat0) O.mat[i] = r.mat;
+  if (r.done) O.done[i] = 1;
+  return ev;
+}
+
 }  // namespace rb
 
 #ifdef __CUDACC__
@@ -270,23 +339,34 @@ brick_advance_kernel(rb::State S, rb::Out O, const uint8_t* __restrict__ dist, r
   if (i < n) rb::advance_in_place(S, O, dist, G, y_max, budget, i);
 }
 
+// brick_fine over all n lanes (lanes null) or over the n lanes listed in
+// lanes, in place; with list_out, the lanes whose evt it sets are appended
+// there and counted in *count_out. *count_clear is zeroed.
 __global__ void __launch_bounds__(kThreads)
 brick_fine_kernel(rb::State S, rb::Out O, uint8_t* __restrict__ o_evt,
                   const uint8_t* __restrict__ bmat, const int32_t* __restrict__ luts,
-                  const int32_t* __restrict__ blin, rb::Grid G, int budget, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t hit[4], evt[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    hit[k] = (uint32_t)__ldg(luts + k);
-    evt[k] = (uint32_t)__ldg(luts + 4 + k);
+                  const int32_t* __restrict__ blin, rb::Grid G, int budget,
+                  const int32_t* __restrict__ lanes, int n, int32_t* __restrict__ list_out,
+                  int32_t* __restrict__ count_out, int32_t* __restrict__ count_clear) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (count_clear != nullptr && j == 0) *count_clear = 0;
+  bool ev = false;
+  int i = 0;
+  if (j < n) {
+    i = lanes != nullptr ? __ldg(lanes + j) : j;
+    ev = rb::fine_in_place(S, O, bmat, luts, blin, G, budget, i);
+    o_evt[i] = ev ? 1 : 0;
   }
-  rb::Lane r;
-  rb::load(S, i, r);
-  const bool ev = rb::fine_lane(bmat, hit, evt, G, budget, blin[i], r);
-  rb::store(O, i, r);
-  o_evt[i] = ev ? 1 : 0;
+  if (list_out != nullptr) {  // every thread of the warp gets here
+    const unsigned ballot = __ballot_sync(0xffffffffu, ev);
+    if (ballot != 0u) {
+      const int lane = threadIdx.x & 31;
+      int base = 0;
+      if (lane == 0) base = atomicAdd(count_out, __popc(ballot));
+      base = __shfl_sync(0xffffffffu, base, 0);
+      if (ev) list_out[base + __popc(ballot & ((1u << lane) - 1u))] = i;
+    }
+  }
 }
 
 namespace {
@@ -358,21 +438,28 @@ extern "C" int brick_blocks_per_sm(int which, int* threads) {
   return blocks;
 }
 
+// brick_fine in place on the march state (cell, tmax, mat, done, lt, la and
+// steps are read and written; step and abs_delta only read) and evt (written
+// on the lanes launched): over all n lanes (lanes null), or over the n lanes
+// listed in lanes. With list_out, the lanes whose evt it sets are appended
+// there and counted in *count_out (zero on entry); *count_clear (if given)
+// is zeroed.
 extern "C" int brick_fine_launch(
     const void* brick_mat, const void* luts, int sx, int sy, int sz, int shift, int budget,
-    const void* cell, const void* tmax, const void* step, const void* abs_delta,
-    const void* mat, const void* done, const void* lt, const void* la, const void* steps,
-    const void* blin, int n,
-    void* o_mat, void* o_cell, void* o_tmax, void* o_lt, void* o_la, void* o_steps,
-    void* o_done, void* o_evt, void* stream) {
+    void* cell, void* tmax, const void* step, const void* abs_delta,
+    void* mat, void* done, void* lt, void* la, void* steps,
+    const void* blin, void* evt, const void* lanes, int n,
+    void* list_out, void* count_out, void* count_clear, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + kThreads - 1) / kThreads;
   brick_fine_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       state_of(cell, tmax, step, abs_delta, mat, done, lt, la, steps),
-      out_of(o_mat, o_cell, o_tmax, o_lt, o_la, o_steps, o_done),
-      static_cast<uint8_t*>(o_evt), static_cast<const uint8_t*>(brick_mat),
+      out_of(mat, cell, tmax, lt, la, steps, done),
+      static_cast<uint8_t*>(evt), static_cast<const uint8_t*>(brick_mat),
       static_cast<const int32_t*>(luts), static_cast<const int32_t*>(blin),
-      grid_of(sx, sy, sz, shift), budget, n);
+      grid_of(sx, sy, sz, shift), budget, static_cast<const int32_t*>(lanes), n,
+      static_cast<int32_t*>(list_out), static_cast<int32_t*>(count_out),
+      static_cast<int32_t*>(count_clear));
   return static_cast<int>(cudaGetLastError());
 }
 

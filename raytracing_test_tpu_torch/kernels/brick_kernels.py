@@ -25,11 +25,19 @@ CPU tensors run the plain versions, CUDA tensors launch the kernels or
 raise. There is no fallback from one to the other. ``LAUNCHES_ADVANCE`` and
 ``LAUNCHES_FINE`` count kernel launches.
 
-Kernel A works in place on a writable march state. ``brick_advance`` leaves
-its caller's state as it is: it copies the fields kernel A writes and
-launches on the copy. ``advance_loop``, the brick hook of the brick path,
-makes no copy: the state it gets comes from the round's last ``brick_fine``
-launch, whose fresh outputs nothing else holds.
+Both kernels work in place on a writable march state. ``brick_advance`` and
+``brick_fine`` leave their caller's state as it is: they copy the fields
+the kernel writes (``writable``) and launch on the copy. The brick path's
+hooks ``advance_loop`` and ``fine_loop`` make no copy: ``brick_march`` hands
+a march with hooks its own copy of those fields once, at its start (primary
+and shadow), and every later state of the march is either written in place
+by the kernels or made fresh by the glue (``material_step`` and
+``dda_step`` return new tensors), so nothing else holds what they write.
+
+``fine_loop`` launches kernel B over all N lanes at the start of a round,
+then each glue pass over the event lanes of the pass before only: the
+launch appends them to an int32 list and counts them on the card, and the
+loop reads that count back instead of ``evt.any()``.
 """
 
 from __future__ import annotations
@@ -50,8 +58,8 @@ LAUNCHES_FINE = 0  # brick_fine launches in this process (never the plain path)
 _GLUE_CAP = 64  # material glue passes per fine phase (make_pallas_loops :552)
 
 brick_advance_plain = bricks._brick_loop
-# the fields of the march state that kernel A writes in place
-ADVANCE_WRITES = ("cell", "tmax", "mat", "done", "last_t", "last_axis", "steps")
+WRITES = bricks.HOOK_WRITES  # the fields of the march state both kernels write in place
+writable = bricks.writable
 
 
 def _prop_luts(scene: Scene, shadow: bool, enable_materials: bool) -> torch.Tensor:
@@ -134,19 +142,6 @@ def _state_args(s: _March, dev) -> list:
     ]
 
 
-def _outputs(N: int, dev) -> dict:
-    i32, f32 = torch.int32, torch.float32
-    return {
-        "mat": torch.empty(N, dtype=i32, device=dev),
-        "cell": torch.empty((N, 3), dtype=i32, device=dev),
-        "tmax": torch.empty((N, 3), dtype=f32, device=dev),
-        "last_t": torch.empty(N, dtype=f32, device=dev),
-        "last_axis": torch.empty(N, dtype=i32, device=dev),
-        "steps": torch.empty(N, dtype=i32, device=dev),
-        "done": torch.empty(N, dtype=torch.bool, device=dev),
-    }
-
-
 def _device(scene: Scene, s: _March, what: str):
     dev = s.cell.device
     if scene.device != dev:
@@ -167,24 +162,33 @@ def _stream(dev) -> int:
 
 def _advance_args(scene: Scene, table: torch.Tensor, s: _March, budget: int):
     """(arguments of brick_advance_launch, inputs to keep alive) for kernel A
-    in place on ``s``: the fields in ADVANCE_WRITES are written, so they must
-    be contiguous already (a copy would take the writes)."""
+    in place on ``s``."""
     dev = s.cell.device
     N = s.cell.shape[0]
     Sx, Sy, Sz = scene.shape3
     sh = scene.brick_shift
     table = _check(table, "brick distance table", torch.uint8, (Sx >> sh, Sy >> sh, Sz >> sh), dev)
-    for f in ADVANCE_WRITES:
-        if not getattr(s, f).is_contiguous():
-            raise ValueError(f"brick_advance: {f} must be contiguous, it is written in place")
+    _written_in_place(s, "brick_advance")
     ins = [table] + _state_args(s, dev)
     args = ([table.data_ptr(), Sx, Sy, Sz, sh, int(scene.y_max), int(budget)]
             + [t.data_ptr() for t in ins[1:]] + [N, _stream(dev)])
     return args, ins
 
 
-def _fine_args(scene: Scene, s: _March, blin: torch.Tensor, luts: torch.Tensor, budget: int):
-    """(arguments of brick_fine_launch, outputs, evt, inputs to keep alive)."""
+def _written_in_place(s: _March, what: str) -> None:
+    """The fields in WRITES are written in place, so they must be contiguous
+    already (a copy would take the writes)."""
+    for f in WRITES:
+        if not getattr(s, f).is_contiguous():
+            raise ValueError(f"{what}: {f} must be contiguous, it is written in place")
+
+
+def _fine_args(scene: Scene, s: _March, blin: torch.Tensor, luts: torch.Tensor, budget: int,
+               evt: torch.Tensor, lanes=None, k: int = 0, list_out=None, counts=None, w: int = 0):
+    """(arguments of brick_fine_launch, inputs to keep alive) for kernel B
+    in place on ``s`` and ``evt``: over all N lanes, or over the first ``k``
+    entries of ``lanes``. With ``list_out`` the launch appends its event
+    lanes there, counts them in ``counts[w]`` and zeroes ``counts[1 - w]``."""
     dev = s.cell.device
     N = s.cell.shape[0]
     Sx, Sy, Sz = scene.shape3
@@ -193,20 +197,29 @@ def _fine_args(scene: Scene, s: _March, blin: torch.Tensor, luts: torch.Tensor, 
     bmat = _check(scene.brick_mat, "brick_mat", torch.uint8, (nb, 1 << (3 * sh)), dev)
     luts = _check(luts, "luts", torch.int32, (8,), dev)
     blin = _check(blin, "blin", torch.int32, (N,), dev)
-    ins = [bmat, luts, blin] + _state_args(s, dev)
-    out = _outputs(N, dev)
-    evt = torch.empty(N, dtype=torch.bool, device=dev)
+    _written_in_place(s, "brick_fine")
+    if evt.dtype != torch.bool or tuple(evt.shape) != (N,) or not evt.is_contiguous():
+        raise ValueError("brick_fine: evt must be a contiguous bool [N], it is written in place")
+    ins = [bmat, luts, blin, evt] + _state_args(s, dev)
+    n, lanes_ptr = N, None
+    if lanes is not None:
+        lanes = _check(lanes, "lanes", torch.int32, (lanes.shape[0],), dev)
+        if not 0 <= k <= lanes.shape[0]:
+            raise ValueError(f"brick_fine: {k} lanes launched from a list of {lanes.shape[0]}")
+        n, lanes_ptr = k, lanes.data_ptr()
+        ins.append(lanes)
+    lists = [None, None, None]
+    if list_out is not None:
+        list_out = _check(list_out, "list_out", torch.int32, (list_out.shape[0],), dev)
+        counts = _check(counts, "counts", torch.int32, (2,), dev)
+        if list_out.shape[0] < n:
+            raise ValueError(f"brick_fine: list_out holds {list_out.shape[0]} lanes, {n} launched")
+        lists = [list_out.data_ptr(), counts[w].data_ptr(), counts[1 - w].data_ptr()]
+        ins += [list_out, counts]
     args = ([bmat.data_ptr(), luts.data_ptr(), Sx, Sy, Sz, sh, int(budget)]
-            + [t.data_ptr() for t in ins[3:]] + [blin.data_ptr(), N]
-            + [t.data_ptr() for t in out.values()]
-            + [evt.data_ptr(), _stream(dev)])
-    return args, out, evt, ins
-
-
-def writable(s: _March) -> _March:
-    """``s`` with fresh contiguous copies of the fields kernel A writes."""
-    return s._replace(**{f: getattr(s, f).clone(memory_format=torch.contiguous_format)
-                         for f in ADVANCE_WRITES})
+            + [t.data_ptr() for t in ins[4:13]]
+            + [blin.data_ptr(), evt.data_ptr(), lanes_ptr, n] + lists + [_stream(dev)])
+    return args, ins
 
 
 def _launch_advance(scene: Scene, table: torch.Tensor, s: _March, budget: int) -> _March:
@@ -230,10 +243,11 @@ def brick_advance(scene: Scene, table: torch.Tensor, s: _March, budget: int) -> 
 
 
 def advance_loop(scene: Scene, table: torch.Tensor, s: _March, budget: int) -> _March:
-    """``brick_march``'s brick hook on kernel A, in place on ``s``: the
-    fields it writes come from the round's last ``brick_fine`` launch
-    (``fine_loop`` ends with one), fresh tensors that nothing else holds, so
-    the round makes no copy. CPU tensors run ``brick_advance_plain``."""
+    """``brick_march``'s brick hook on kernel A, in place on ``s``, which the
+    march owns (``brick_march`` copied its fields once at the start of the
+    march; ``fine_loop`` writes the same tensors in place or hands on the
+    glue's fresh ones), so the round makes no copy. CPU tensors run
+    ``brick_advance_plain``."""
     if _device(scene, s, "brick_advance").type == "cpu":
         return brick_advance_plain(scene, table, s, budget)
     return _launch_advance(scene, table, s, budget)
@@ -255,45 +269,117 @@ def occupancy():
     return out
 
 
-def brick_fine(scene: Scene, s: _March, blin: torch.Tensor, luts: torch.Tensor, budget: int):
-    """Kernel B on a march state -> (state, evt bool[N]): CPU tensors run
-    ``brick_fine_plain``, CUDA tensors launch the kernel (or raise)."""
+def _launch_fine(scene: Scene, s: _March, blin, luts, budget: int, evt, lanes=None, k: int = 0,
+                 list_out=None, counts=None, w: int = 0) -> None:
+    """Kernel B in place on ``s`` and ``evt`` (``_fine_args``); raises on a
+    failed launch."""
     global LAUNCHES_FINE
-    if _device(scene, s, "brick_fine").type == "cpu":
-        return brick_fine_plain(scene, s, blin, luts, budget)
     from . import build
 
     lib = build.library("brick_march")
-    args, out, evt, _ = _fine_args(scene, s, blin, luts, budget)
+    args, _ = _fine_args(scene, s, blin, luts, budget, evt, lanes, k, list_out, counts, w)
     _raise_on(lib.brick_fine_launch(*args), lib, "brick_fine")
     LAUNCHES_FINE += 1
-    return s._replace(**out), evt
+
+
+def brick_fine(scene: Scene, s: _March, blin: torch.Tensor, luts: torch.Tensor, budget: int,
+               lanes=None):
+    """Kernel B on a march state -> (state, evt bool[N]); ``s`` is left as it
+    is. ``lanes`` (int32 [K]): march only these lanes (a glue pass marches
+    the event lanes of the launch before); the others come back as they are,
+    with evt 0. CPU tensors run ``brick_fine_plain`` (blin -1 on the lanes
+    not listed); CUDA tensors launch the kernel in place on a copy of the
+    fields it writes (or raise)."""
+    if _device(scene, s, "brick_fine").type == "cpu":
+        if lanes is not None:
+            keep = torch.zeros_like(s.done)
+            keep[lanes.long()] = True
+            blin = torch.where(keep, blin, torch.full_like(blin, -1))
+        return brick_fine_plain(scene, s, blin, luts, budget)
+    out = writable(s)
+    N, dev = s.cell.shape[0], s.cell.device
+    if lanes is None:
+        evt = torch.empty(N, dtype=torch.bool, device=dev)
+        _launch_fine(scene, out, blin, luts, budget, evt)
+    else:
+        evt = torch.zeros(N, dtype=torch.bool, device=dev)
+        _launch_fine(scene, out, blin, luts, budget, evt, lanes, int(lanes.shape[0]))
+    return out, evt
+
+
+def material_glue(scene: Scene, s: _March, evt, cfg: RenderConfig, budget: int, time_s) -> _March:
+    """The glue between two ``brick_fine`` launches (make_pallas_loops
+    :503-559): ``material_step`` on the event lanes, then one DDA step for
+    them."""
+    fl = scene.flags[s.mat.long()]
+    is_refl, is_refr, _ = classify(fl, s.mat, evt, cfg)
+    (dirx, stepx, absx, tmaxx, segx, last_t, cmod, ior, refl) = material_step(
+        s, is_refl, is_refr, fl, cfg, time_s
+    )
+    s = s._replace(
+        dir=dirx, step=stepx, abs_delta=absx, tmax=tmaxx, seg_origin=segx,
+        last_t=last_t, color_mod=cmod, ior=ior, reflected=refl,
+    )
+    return bricks.dda_step(s, evt, budget)
 
 
 def fine_loop(scene: Scene, s: _March, blin, cfg: RenderConfig, budget: int, shadow: bool,
-              time_s):
+              time_s, check=None):
     """``brick_march``'s fine hook on kernel B: run it, then (primary path,
-    materials on) apply ``material_step`` and one DDA step to the event lanes
-    and run it again until no event is left: the marching sequence of the
-    plain ``_fine_loop``, which handles events inside its loop."""
+    materials on) apply ``material_glue`` to the event lanes and run it again
+    until no event is left: the marching sequence of the plain
+    ``_fine_loop``, which handles events inside its loop.
+
+    CUDA tensors: in place on ``s``, which the march owns (``brick_march``);
+    the first launch runs all N lanes, each glue pass only the event lanes
+    of the launch before, from the list that launch wrote on the card (two
+    lists in turn; their counts are read back, one 4-byte read a pass).
+    ``check(scene, s_in, blin, luts, budget, lanes, s_out, evt)``, where
+    given, sees every launch with a copy of its input (``lanes``: None for a
+    launch over all lanes; ``chip_smoke.py`` holds each launch to
+    ``brick_fine_plain``). CPU tensors run ``brick_fine_plain`` on all lanes
+    for every pass (``check`` sees those too)."""
     luts = _prop_luts(scene, shadow, cfg.enable_materials)
-    s, evt = brick_fine(scene, s, blin, luts, budget)
-    if shadow or not cfg.enable_materials:
+    glue = not shadow and cfg.enable_materials
+    if _device(scene, s, "brick_fine").type == "cpu":
+        def plain(s):
+            out, evt = brick_fine_plain(scene, s, blin, luts, budget)
+            if check is not None:
+                check(scene, s, blin, luts, budget, None, out, evt)
+            return out, evt
+
+        s, evt = plain(s)
+        for _ in range(_GLUE_CAP if glue else 0):
+            if not bool(evt.any()):
+                break
+            s, evt = plain(material_glue(scene, s, evt, cfg, budget, time_s))
         return s
+
+    dev = s.cell.device
+    N = s.cell.shape[0]
+    evt = torch.empty(N, dtype=torch.bool, device=dev)
+
+    def launch(s, lanes=None, k=0, list_out=None, counts=None, w=0):
+        s_in = writable(s) if check is not None else None
+        _launch_fine(scene, s, blin, luts, budget, evt, lanes, k, list_out, counts, w)
+        if check is not None:
+            check(scene, s_in, blin, luts, budget, None if lanes is None else lanes[:k], s, evt)
+
+    if not glue:
+        launch(s)
+        return s
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    lanes = torch.empty(N, dtype=torch.int32, device=dev)
+    launch(s, list_out=lanes, counts=counts, w=0)
+    w = 0
     for _ in range(_GLUE_CAP):
-        if not bool(evt.any()):
+        k = int(counts[w])
+        if k == 0:
             break
-        fl = scene.flags[s.mat.long()]
-        is_refl, is_refr, _ = classify(fl, s.mat, evt, cfg)
-        (dirx, stepx, absx, tmaxx, segx, last_t, cmod, ior, refl) = material_step(
-            s, is_refl, is_refr, fl, cfg, time_s
-        )
-        s = s._replace(
-            dir=dirx, step=stepx, abs_delta=absx, tmax=tmaxx, seg_origin=segx,
-            last_t=last_t, color_mod=cmod, ior=ior, reflected=refl,
-        )
-        s = bricks.dda_step(s, evt, budget)
-        s, evt = brick_fine(scene, s, blin, luts, budget)
+        s = material_glue(scene, s, evt, cfg, budget, time_s)
+        nxt = torch.empty(k, dtype=torch.int32, device=dev)
+        launch(s, lanes, k, nxt, counts, 1 - w)
+        lanes, w = nxt, 1 - w
     return s
 
 

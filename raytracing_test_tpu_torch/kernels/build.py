@@ -162,7 +162,6 @@ def _declare_fused_window(lib: ctypes.CDLL) -> None:
 def _declare_brick_march(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     state = [P] * 9  # cell, tmax, step, abs_delta, mat, done, last_t, last_axis, steps
-    outs = [P] * 7  # mat, cell, tmax, last_t, last_axis, steps, done
     lib.brick_advance_launch.argtypes = (
         [P] + [I] * 6  # brick_dist, sx, sy, sz, shift, y_max, budget
         + state + [I, P]  # the state, written in place; n; stream
@@ -172,7 +171,8 @@ def _declare_brick_march(lib: ctypes.CDLL) -> None:
     lib.brick_blocks_per_sm.restype = ctypes.c_int
     lib.brick_fine_launch.argtypes = (
         [P, P] + [I] * 5  # brick_mat, luts, sx, sy, sz, shift, budget
-        + state + [P, I] + outs + [P, P]  # blin, n; evt, stream
+        + state + [P, P, P, I]  # the state, written in place; blin, evt, lanes, n
+        + [P] * 3 + [P]  # list_out, count_out, count_clear; stream
     )
     lib.brick_fine_launch.restype = ctypes.c_int
 

@@ -62,6 +62,8 @@ from .renderer import (
 )
 
 _FINE_CAP = 64  # loop guard on fine iterations per round
+# the fields of the march state that the kernel hooks write in place
+HOOK_WRITES = ("cell", "tmax", "mat", "done", "last_t", "last_axis", "steps")
 _BRICK_CAP = 512  # loop guard on brick iterations per round
 _ROUND_CAP = 512  # loop guard on rounds; the step budgets end every march first
 
@@ -210,13 +212,24 @@ def _brick_loop(scene: Scene, table, s: _March, budget):
     return s
 
 
+def writable(s: _March) -> _March:
+    """``s`` with fresh contiguous copies of the fields in HOOK_WRITES."""
+    return s._replace(**{f: getattr(s, f).clone(memory_format=torch.contiguous_format)
+                         for f in HOOK_WRITES})
+
+
 def brick_march(scene: Scene, state: _March, cfg: RenderConfig, budget: int,
                 shadow: bool = False, time_s=None, fine_loop=None, brick_loop=None):
     """Rounds of fine -> brick until every lane is done. ``fine_loop`` /
     ``brick_loop`` replace the inner loops (the kernels plug in here; the
-    defaults are the plain loops above). Returns (state, rounds)."""
+    defaults are the plain loops above). The hooks may write the fields of
+    HOOK_WRITES in place, so a march with a hook owns copies of them, made
+    once here (the caller's tensors stay as they are: start_cell's ``done``
+    is its ``raw0``). Returns (state, rounds)."""
     if time_s is None:
         time_s = cfg.time
+    if fine_loop is not None or brick_loop is not None:
+        state = writable(state)
     fine = fine_loop or _fine_loop
     brick = brick_loop or _brick_loop
     table = scene.brick_dist_shadow if shadow else scene.brick_dist

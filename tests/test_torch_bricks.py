@@ -370,7 +370,7 @@ class _PlainAdvanceLibrary:
         views = {k: _view(*v) for k, v in mem.items()}
         s = self.base._replace(**{k: v.clone() for k, v in views.items()})
         out = tbk.brick_advance_plain(self.scene, self.scene.brick_dist, s, budget)
-        for f in tbk.ADVANCE_WRITES:
+        for f in tbk.WRITES:
             views[f].copy_(getattr(out, f))
         self.launches += 1
         return 0
@@ -400,21 +400,21 @@ def test_brick_advance_kernel_path_owns_its_writes(terrain_scenes, monkeypatch):
     monkeypatch.setattr(tbk, "_stream", lambda dev: 0)
     monkeypatch.setattr(build, "_LIBS", {"brick_march": lib})
     monkeypatch.setattr(tbk, "LAUNCHES_ADVANCE", tbk.LAUNCHES_ADVANCE)  # restored afterwards
-    before = {f: getattr(s, f).clone() for f in tbk.ADVANCE_WRITES}
+    before = {f: getattr(s, f).clone() for f in tbk.WRITES}
     n0 = tbk.LAUNCHES_ADVANCE
 
     got = tbk.brick_advance(ts, ts.brick_dist, s, 150)
     assert tbk.LAUNCHES_ADVANCE == n0 + 1 == n0 + lib.launches
-    for f in tbk.ADVANCE_WRITES:
+    for f in tbk.WRITES:
         assert torch.equal(getattr(s, f), before[f]), f  # the caller's state is untouched
         assert torch.equal(getattr(got, f), getattr(want, f)), f
         assert getattr(got, f).data_ptr() != getattr(s, f).data_ptr(), f
 
     mine = tbk.writable(s)
-    ptrs = {f: getattr(mine, f).data_ptr() for f in tbk.ADVANCE_WRITES}
+    ptrs = {f: getattr(mine, f).data_ptr() for f in tbk.WRITES}
     out = tbk.advance_loop(ts, ts.brick_dist, mine, 150)
     assert tbk.LAUNCHES_ADVANCE == n0 + 2 == n0 + lib.launches
-    for f in tbk.ADVANCE_WRITES:
+    for f in tbk.WRITES:
         assert getattr(out, f).data_ptr() == ptrs[f], f  # written in place
         assert torch.equal(getattr(mine, f), getattr(want, f)), f
 
@@ -422,6 +422,125 @@ def test_brick_advance_kernel_path_owns_its_writes(terrain_scenes, monkeypatch):
     with pytest.raises(ValueError, match="tmax must be contiguous"):
         tbk.advance_loop(ts, ts.brick_dist, strided, 150)
     assert tbk.LAUNCHES_ADVANCE == n0 + 2
+
+
+class _PlainFineLibrary:
+    """Stands in for the brick_march library: its brick_fine_launch runs
+    brick_fine_plain on the memory it is handed and writes the result there,
+    in place, over all lanes or over the listed ones, writes evt on those,
+    and appends the event lanes to the list, as the kernel does."""
+
+    def __init__(self, scene, base):
+        self.scene, self.base, self.launches, self.listed = scene, base, 0, []
+
+    def brick_fine_launch(self, bmat, luts, sx, sy, sz, shift, budget, cell, tmax, step, abs_delta,
+                          mat, done, last_t, last_axis, steps, blin, evt, lanes, n, list_out,
+                          count_out, count_clear, stream):
+        assert bmat == self.scene.brick_mat.data_ptr() and (sx, sy, sz) == self.scene.shape3
+        N = self.base.cell.shape[0]
+        i32, f32 = torch.int32, torch.float32
+        mem = {"cell": (cell, i32, (N, 3)), "tmax": (tmax, f32, (N, 3)),
+               "step": (step, f32, (N, 3)), "abs_delta": (abs_delta, f32, (N, 3)),
+               "mat": (mat, i32, (N,)), "done": (done, torch.bool, (N,)),
+               "last_t": (last_t, f32, (N,)), "last_axis": (last_axis, i32, (N,)),
+               "steps": (steps, i32, (N,))}
+        views = {k: _view(*v) for k, v in mem.items()}
+        ids = torch.arange(n) if lanes is None else _view(lanes, i32, (n,)).long().clone()
+        if count_clear:
+            _view(count_clear, i32, (1,))[0] = 0
+        keep = torch.zeros(N, dtype=torch.bool)
+        keep[ids] = True
+        b = _view(blin, i32, (N,))
+        s = self.base._replace(**{k: v.clone() for k, v in views.items()})
+        out, e = tbk.brick_fine_plain(self.scene, s, torch.where(keep, b, torch.full_like(b, -1)),
+                                      _view(luts, i32, (8,)).clone(), budget)
+        for f in tbk.WRITES:
+            views[f].copy_(getattr(out, f))
+        _view(evt, torch.bool, (N,))[ids] = e[ids]
+        if list_out:
+            c = _view(count_out, i32, (1,))
+            ev = ids[e[ids]].to(i32)
+            if ev.numel():
+                _view(list_out, i32, (int(c[0]) + ev.numel(),))[int(c[0]):] = ev
+            c[0] += ev.numel()
+        self.launches += 1
+        self.listed.append(None if lanes is None else n)
+        return 0
+
+    def kernel_error_string(self, err):
+        return b"stand-in"
+
+
+@pytest.fixture
+def fine_kernel_path(mat_scenes, round_states, monkeypatch):
+    """The mirror-and-glass view's second fine phase input, and the
+    wrappers' CUDA branch on a stand-in library (_PlainFineLibrary, on CPU
+    memory): (scene, state, blin, library)."""
+    js, ts = mat_scenes
+    _, _, _, s2 = round_states
+    _, _, blin = _round_inputs(js, s2, False)
+    s = _to_torch(s2)
+    lib = _PlainFineLibrary(ts, s)
+    monkeypatch.setattr(tbk, "_device", lambda scene, st, what: torch.device("cuda"))
+    monkeypatch.setattr(tbk, "_stream", lambda dev: 0)
+    monkeypatch.setattr(build, "_LIBS", {"brick_march": lib})
+    monkeypatch.setattr(tbk, "LAUNCHES_FINE", 0)
+    return ts, s, torch.from_numpy(np.array(blin)), lib
+
+
+def test_brick_fine_leaves_its_input_unchanged(fine_kernel_path):
+    """brick_fine's CUDA branch, whose kernel writes in place, on a stand-in
+    library: the caller's state is left as it was, and the result (over all
+    lanes, and over a list of lanes after the glue) is brick_fine_plain's."""
+    ts, s, blin, lib = fine_kernel_path
+    luts = tbk._prop_luts(ts, False, True)
+    before = {f: getattr(s, f).clone() for f in tbk.WRITES}
+    got, evt = tbk.brick_fine(ts, s, blin, luts, 150)
+    want, evt_want = tbk.brick_fine_plain(ts, s, blin, luts, 150)
+    assert tbk.LAUNCHES_FINE == lib.launches == 1 and bool(evt_want.any())
+    assert torch.equal(evt, evt_want)
+    for f in tbk.WRITES:
+        assert torch.equal(getattr(s, f), before[f]), f  # the caller's state is untouched
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert getattr(got, f).data_ptr() != getattr(s, f).data_ptr(), f
+
+    s2 = tbk.material_glue(ts, got, evt, RenderConfig(width=24, height=24), 150, CASES[1][2])
+    lanes = torch.nonzero(evt).flatten().to(torch.int32)
+    before = {f: getattr(s2, f).clone() for f in tbk.WRITES}
+    got2, evt2 = tbk.brick_fine(ts, s2, blin, luts, 150, lanes=lanes)
+    want2, evt_want2 = tbk.brick_fine_plain(ts, s2, blin, luts, 150)
+    assert lib.listed == [None, lanes.numel()]
+    assert torch.equal(evt2, evt_want2)
+    for f in tbk.WRITES:
+        assert torch.equal(getattr(s2, f), before[f]), f
+        assert torch.equal(getattr(got2, f), getattr(want2, f)), f
+
+
+def test_fine_loop_kernel_path_works_in_place(fine_kernel_path):
+    """fine_loop's CUDA branch on the stand-in library: the first launch over
+    all lanes, each glue pass over the listed event lanes of the one before,
+    in place on the state it is given (which the march owns); the result is
+    the plain fine_loop's; every launch counts once."""
+    ts, s, blin, lib = fine_kernel_path
+    rcfg = RenderConfig(width=24, height=24, max_steps=150, shadow_steps=40)
+    time_s = CASES[1][2]
+    mine = tbk.writable(s)
+    mat_ptr = mine.mat.data_ptr()
+    got = tbk.fine_loop(ts, mine, blin, rcfg, 150, False, time_s)
+    assert got.mat.data_ptr() == mat_ptr  # written in place; the glue never replaces mat
+    assert lib.launches == tbk.LAUNCHES_FINE >= 2
+    assert lib.listed[0] is None and all(k is not None and k > 0 for k in lib.listed[1:])
+    assert lib.listed[1] < blin.shape[0]
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(tbk, "_device", lambda scene, st, what: torch.device("cpu"))
+        want = tbk.fine_loop(ts, s, blin, rcfg, 150, False, time_s)
+    for f in ("mat", "cell", "tmax", "last_t", "last_axis", "steps", "done", "dir", "step",
+              "abs_delta", "seg_origin", "color_mod", "ior", "reflected"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+    strided = tbk.writable(s)._replace(tmax=s.tmax.t().contiguous().t())
+    with pytest.raises(ValueError, match="tmax must be contiguous"):
+        tbk.fine_loop(ts, strided, blin, rcfg, 150, False, time_s)
 
 
 # ---- the CLI

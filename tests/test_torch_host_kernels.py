@@ -208,6 +208,40 @@ extern "C" int host_brick_advance(const void* dist, int sx, int sy, int sz, int 
   return 0;
 }
 
+// brick_fine_launch's work on the host, with its arguments: thread j of the
+// launch runs lane i = lanes[j] (or j) in place; an event lane is appended to
+// list_out in thread order (the card's order differs from run to run)
+extern "C" int host_brick_fine(const void* brick_mat, const void* luts, int sx, int sy, int sz,
+                               int shift, int budget, void* cell, void* tmax, const void* step,
+                               const void* abs_delta, void* mat, void* done, void* lt, void* la,
+                               void* steps, const void* blin, void* evt, const void* lanes, int n,
+                               void* list_out, void* count_out, void* count_clear, void* stream) {
+  (void)stream;
+  rb::State S{static_cast<const int32_t*>(cell), static_cast<const float*>(tmax),
+              static_cast<const float*>(step), static_cast<const float*>(abs_delta),
+              static_cast<const int32_t*>(mat), static_cast<const uint8_t*>(done),
+              static_cast<const float*>(lt), static_cast<const int32_t*>(la),
+              static_cast<const int32_t*>(steps)};
+  rb::Out O{static_cast<int32_t*>(mat), static_cast<int32_t*>(cell),
+            static_cast<float*>(tmax), static_cast<float*>(lt), static_cast<int32_t*>(la),
+            static_cast<int32_t*>(steps), static_cast<uint8_t*>(done)};
+  rb::Grid G{sx, sy, sz, shift, sy >> shift, sz >> shift};
+  const auto* bmat = static_cast<const uint8_t*>(brick_mat);
+  const auto* lut = static_cast<const int32_t*>(luts);
+  const auto* bl = static_cast<const int32_t*>(blin);
+  if (count_clear != nullptr) *static_cast<int32_t*>(count_clear) = 0;
+  for (int j = 0; j < n; ++j) {
+    const int i = lanes != nullptr ? static_cast<const int32_t*>(lanes)[j] : j;
+    const bool ev = rb::fine_in_place(S, O, bmat, lut, bl, G, budget, i);
+    static_cast<uint8_t*>(evt)[i] = ev ? 1 : 0;
+    if (ev && list_out != nullptr) {
+      int32_t* c = static_cast<int32_t*>(count_out);
+      static_cast<int32_t*>(list_out)[(*c)++] = i;
+    }
+  }
+  return 0;
+}
+
 extern "C" const char* kernel_error_string(int err) { return err ? "host error" : "no error"; }
 """
 
@@ -231,10 +265,13 @@ def build_host_library(d, harnesses):
 
 
 def declare_brick_advance(lib):
-    """The argument types of host_brick_advance: brick_advance_launch's."""
+    """The argument types of host_brick_advance and host_brick_fine:
+    brick_advance_launch's and brick_fine_launch's (kernels/build.py)."""
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.host_brick_advance.argtypes = [P] + [I] * 6 + [P] * 9 + [I, P]
     lib.host_brick_advance.restype = I
+    lib.host_brick_fine.argtypes = [P, P] + [I] * 5 + [P] * 9 + [P, P, P, I] + [P] * 4
+    lib.host_brick_fine.restype = I
     lib.kernel_error_string.argtypes = [I]
     lib.kernel_error_string.restype = ctypes.c_char_p
 
@@ -436,25 +473,28 @@ def test_host_window_fwd_paths_match_plain_version(host_lib, window_rays, path):
 
 @pytest.fixture(scope="module")
 def brick_rounds(worlds):
-    """Each view's primary march at brick_advance's input (after the round's
-    fine phase) in rounds 1 and 3, from the plain brick path."""
+    """Each view's primary march in rounds 1 to 3, from the plain brick
+    path: at brick_advance's input (after the round's fine phase), and at
+    brick_fine's (the round's start: state, blin, time)."""
     _, _, views = worlds
     rcfg = RenderConfig(width=W, height=H, max_steps=150, shadow_steps=40)
-    out = {}
+    out, fine_in = {}, {}
     for view, (scene, pos, dirn, time_s) in views.items():
         s, _, _ = fast.start_cell(scene, _state(pos, dirn))
         for r in (1, 2, 3):
             blin = bricks.occupied_brick(scene, scene.brick_dist, s)
+            fine_in[view, r] = (scene, s, blin, time_s)
             s = bricks._fine_loop(scene, s, blin, rcfg, rcfg.max_steps, False, time_s)
             out[view, r] = (scene, s)
             s = bricks._brick_loop(scene, scene.brick_dist, s, rcfg.max_steps)
-    return rcfg, out
+    return rcfg, out, fine_in
 
 
-def _poison_done(s):
-    """``s`` with the fields brick_advance writes set to sentinels on the
-    done lanes (which it must leave as they are: the plain version does)."""
-    d = s.done
+def _poison_done(s, lanes=None):
+    """``s`` with the fields the brick kernels write set to sentinels on the
+    done lanes, or on ``lanes`` (which they must leave as they are: the
+    plain versions do)."""
+    d = s.done if lanes is None else lanes
     sentinel = {"cell": 987654, "tmax": float("nan"), "mat": -5, "last_t": -1.5,
                 "last_axis": 7, "steps": -3}
     out = {}
@@ -502,7 +542,7 @@ def test_host_brick_advance_exit_rules(host_lib):
         steps=torch.full((n,), 7, dtype=torch.int32), done=torch.zeros(n, dtype=torch.bool))
     want = bk.brick_advance_plain(scene, scene.brick_dist, s, 150)
     got = _host_advance(host_lib, scene, s, 150)
-    for f in bk.ADVANCE_WRITES:
+    for f in bk.WRITES:
         g, w = getattr(got, f), getattr(want, f)
         if g.is_floating_point():
             g, w = g.view(torch.int32), w.view(torch.int32)
@@ -520,14 +560,14 @@ def test_host_brick_advance_matches_plain_version(host_lib, brick_rounds, view, 
     the bit on a round's input; the done lanes (their fields set to
     sentinels) and the lanes waiting in an occupied brick come back as they
     went in."""
-    rcfg, states = brick_rounds
+    rcfg, states, _ = brick_rounds
     scene, s = states[view, rnd]
     s = _poison_done(s)
     n = s.cell.shape[0]
     want = bk.brick_advance_plain(scene, scene.brick_dist, s, rcfg.max_steps)
     got = _host_advance(host_lib, scene, s, rcfg.max_steps)
     same_lane = torch.ones(n, dtype=torch.bool)
-    for f in bk.ADVANCE_WRITES:
+    for f in bk.WRITES:
         g, w, s_in = getattr(got, f), getattr(want, f), getattr(s, f)
         if g.is_floating_point():
             g, w, s_in = (t.view(torch.int32) for t in (g, w, s_in))
@@ -541,3 +581,162 @@ def test_host_brick_advance_matches_plain_version(host_lib, brick_rounds, view, 
     assert int(moved.sum()) > 0
     if rnd > 1:  # a later round has lanes of every kind
         assert int(s.done.sum()) > 0 and int(waiting.sum()) > 0
+
+
+@pytest.fixture
+def host_fine(host_lib, monkeypatch):
+    """``run(scene, s, blin, luts, budget, evt, lanes, k, list_out, counts,
+    w)``: brick_fine's host build with the arguments the wrapper builds
+    (``bk._fine_args``), in place on ``s`` and ``evt``."""
+    monkeypatch.setattr(bk, "_stream", lambda dev: None)
+
+    def run(scene, s, blin, luts, budget, evt, lanes=None, k=0, list_out=None, counts=None, w=0):
+        args, _ = bk._fine_args(scene, s, blin, luts, budget, evt, lanes, k, list_out, counts, w)
+        assert host_lib.host_brick_fine(*args) == 0
+
+    return run
+
+
+def _assert_lanes_equal(got, want, evt_got=None, evt_want=None):
+    """Every field the kernels write equal to the bit (and evt equal)."""
+    n = got.cell.shape[0]
+    for f in bk.WRITES:
+        g, w = getattr(got, f), getattr(want, f)
+        if g.is_floating_point():
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        n_bad = int((g != w).reshape(n, -1).any(dim=1).sum())
+        assert torch.equal(g, w), f"{f} differs on {n_bad} lanes"
+    if evt_got is not None:
+        assert torch.equal(evt_got, evt_want), f"evt differs on {int((evt_got != evt_want).sum())}"
+
+
+@pytest.mark.parametrize("rnd", [2, 3])  # round 1 starts in the air: no lane has a brick
+@pytest.mark.parametrize("view", ["terrain", "water"])
+def test_host_brick_fine_matches_plain_version(host_fine, brick_rounds, view, rnd):
+    """brick_fine's per-lane code in place over all lanes against
+    brick_fine_plain to the bit on a round's input; the done lanes and the lanes
+    without a brick (their fields set to sentinels), and lanes given a brick
+    they do not stand in, come back untouched, with evt 0."""
+    rcfg, _, fine_in = brick_rounds
+    scene, s, blin, _ = fine_in[view, rnd]
+    assert scene.brick_shift == 2
+    # at a round's start every live lane stands in its brick: take some away
+    lane = torch.arange(blin.shape[0])
+    live = ~s.done
+    blin = torch.where(live & (lane % 7 == 0), torch.full_like(blin, -1), blin)
+    elsewhere = live & (lane % 7 == 1)
+    blin = torch.where(elsewhere, (blin + 1) % scene.brick_mat.shape[0], blin)
+    idle = s.done | (blin < 0)
+    s = _poison_done(s, idle)
+    luts = bk._prop_luts(scene, False, True)
+    want, evt_want = bk.brick_fine_plain(scene, s, blin, luts, rcfg.max_steps)
+    got = bk.writable(s)
+    evt = torch.ones_like(s.done)  # every launched lane writes its evt
+    host_fine(scene, got, blin, luts, rcfg.max_steps, evt)
+    _assert_lanes_equal(got, want, evt, evt_want)
+    untouched = idle | elsewhere
+    for f in bk.WRITES:  # those lanes as they went in, sentinels and all
+        g, w = getattr(got, f)[untouched], getattr(s, f)[untouched]
+        if g.is_floating_point():
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), f
+    assert not bool(evt[untouched].any())
+    assert int((want.steps != s.steps).sum()) > 0
+    assert int((~s.done & (blin < 0)).sum()) > 0 and bool(elsewhere.any())
+    assert int(s.done.sum()) > 0 or (view, rnd) == ("terrain", 2)  # every ray still marches there
+
+
+def _glue_input(scene, s, blin, luts, rcfg, time_s, run):
+    """A full launch of the host build with its event list, then the
+    material glue on its event lanes: (glue output, evt, list, count)."""
+    n = s.cell.shape[0]
+    s = bk.writable(s)
+    evt = torch.empty(n, dtype=torch.bool)
+    lanes, counts = torch.full((n,), -1, dtype=torch.int32), torch.full((2,), 99, dtype=torch.int32)
+    counts[0] = 0
+    run(scene, s, blin, luts, rcfg.max_steps, evt, list_out=lanes, counts=counts, w=0)
+    k = int(counts[0])
+    assert int(counts[1]) == 0  # the other list's count, zeroed
+    assert torch.equal(torch.sort(lanes[:k]).values, torch.nonzero(evt).flatten().to(torch.int32))
+    return bk.material_glue(scene, s, evt, rcfg, rcfg.max_steps, time_s), evt, lanes, k
+
+
+@pytest.mark.parametrize("rnd", [2, 3])
+def test_host_brick_fine_list_launch_on_a_glue_pass(host_fine, brick_rounds, rnd):
+    """A glue pass: the full launch lists its event lanes, material_glue
+    (material_step and one DDA step) runs on them, then the host build runs
+    over the list only, in place: every one of the N lanes equal to the bit
+    to brick_fine_plain over all lanes on the glue's output, evt too (so no
+    unlisted lane changed), its own events listed in the other list."""
+    rcfg, _, fine_in = brick_rounds
+    scene, s, blin, time_s = fine_in["water", rnd]
+    luts = bk._prop_luts(scene, False, True)
+    s2, evt, lanes, k = _glue_input(scene, s, blin, luts, rcfg, time_s, host_fine)
+    assert k > 0
+    want, evt_want = bk.brick_fine_plain(scene, s2, blin, luts, rcfg.max_steps)
+    got = bk.writable(s2)
+    nxt, counts = torch.full((k,), -1, dtype=torch.int32), torch.tensor([7, 0], dtype=torch.int32)
+    host_fine(scene, got, blin, luts, rcfg.max_steps, evt, lanes, k, nxt, counts, 1)
+    _assert_lanes_equal(got, want, evt, evt_want)
+    k2 = int(counts[1])
+    assert int(counts[0]) == 0 and k2 == int(evt_want.sum())
+    assert torch.equal(torch.sort(nxt[:k2]).values, torch.nonzero(evt_want).flatten().to(torch.int32))
+    moved = (want.steps != s2.steps) | evt_want
+    listed = torch.zeros_like(evt)
+    listed[lanes[:k].long()] = True
+    assert bool(moved.any()) and not bool((moved & ~listed).any())
+
+
+class _HostBrickLibrary:
+    """The brick_march library's launch functions from the host build."""
+
+    def __init__(self, lib):
+        self.brick_advance_launch = lib.host_brick_advance
+        self.brick_fine_launch = lib.host_brick_fine
+        self.kernel_error_string = lib.kernel_error_string
+
+
+@pytest.mark.parametrize("view", ["terrain", "water"])
+def test_host_kernels_drive_the_brick_frame(host_lib, worlds, monkeypatch, view):
+    """render_rays_bricks_pallas on the wrappers' kernel path with the host
+    build as the library (in place, the glue passes over the listed event
+    lanes, the counts read back): the frame and its aux equal to the bit to
+    the plain brick path's; the caller's start state is not written."""
+    from raytracing_test_tpu_torch import kernels
+
+    _, _, views = worlds
+    scene, pos, dirn, time_s = views[view]
+    rcfg = RenderConfig(width=W, height=H, max_steps=150, shadow_steps=40)
+    cam = Camera(pos=torch.tensor(pos), dir=torch.tensor(dirn))
+    dirs = ray_directions(cam, W, H)
+    want_rgb, want_aux = bricks.render_rays_bricks(scene, cam.pos, dirs, rcfg, time_s=time_s)
+
+    monkeypatch.setattr(bk, "_device", lambda scene, st, what: torch.device("cuda"))
+    monkeypatch.setattr(bk, "_stream", lambda dev: None)
+    monkeypatch.setattr(kernels.build, "_LIBS", {"brick_march": _HostBrickLibrary(host_lib)})
+    monkeypatch.setattr(bk, "LAUNCHES_FINE", 0)
+    monkeypatch.setattr(bk, "LAUNCHES_ADVANCE", 0)
+    s0 = fast._init_state(cam.pos, dirs, torch.ones(dirs.shape[0]))
+    start, _, _ = fast.start_cell(scene, s0)
+    before = {f: getattr(start, f).clone() for f in bk.WRITES}
+    glue = []
+    real_glue = bk.material_glue
+    monkeypatch.setattr(bk, "material_glue", lambda *a: glue.append(int(a[2].sum())) or real_glue(*a))
+    got_rgb, got_aux = bk.render_rays_bricks_pallas(scene, cam.pos, dirs, rcfg, time_s=time_s)
+    assert torch.equal(got_rgb.view(torch.int32), want_rgb.view(torch.int32))
+    assert got_aux.keys() == want_aux.keys()
+    for key, w in want_aux.items():
+        g = got_aux[key]
+        if isinstance(w, torch.Tensor):
+            assert torch.equal(g.view(torch.int32) if g.is_floating_point() else g,
+                               w.view(torch.int32) if w.is_floating_point() else w), key
+        else:
+            assert g == w, key
+    bricks.brick_march(scene, start, rcfg, 150, time_s=time_s, fine_loop=bk.fine_loop,
+                       brick_loop=bk.advance_loop)
+    for f in bk.WRITES:
+        assert torch.equal(getattr(start, f), before[f]), f
+    rounds = want_aux["march_rounds"]
+    assert bk.LAUNCHES_FINE > rounds and bk.LAUNCHES_ADVANCE > rounds
+    if view == "water":
+        assert glue and max(glue) < dirs.shape[0]  # the glue passes ran on listed lanes
