@@ -998,23 +998,53 @@ def checked_advance(name):
     return hook
 
 
+class watched_fine:
+    """Within this block every brick_fine launch goes through
+    brick_kernels._launch_fine wrapped (fine_loop and brick_fine look it up
+    at each launch): the fields it writes are copied before the launch, and
+    ``check(scene, s_in, blin, luts, budget, lanes, s_out, evt, listing)``
+    sees the launch after it (``lanes``: None for a launch over all lanes,
+    else the K listed; ``listing``: the launch appends its event lanes to a
+    list)."""
+
+    def __init__(self, check):
+        self.check = check
+
+    def __enter__(self):
+        from raytracing_test_tpu_torch.kernels import brick_kernels as bk
+        from raytracing_test_tpu_torch.render import bricks
+
+        real = self.real = bk._launch_fine
+
+        def launch(scene, s, blin, luts, budget, evt, lanes=None, k=0, list_out=None,
+                   counts=None, w=0):
+            s_in = bricks.writable(s)
+            real(scene, s, blin, luts, budget, evt, lanes, k, list_out, counts, w)
+            self.check(scene, s_in, blin, luts, budget, None if lanes is None else lanes[:k], s,
+                       evt, list_out is not None)
+
+        bk._launch_fine = launch
+        return self
+
+    def __exit__(self, *exc):
+        from raytracing_test_tpu_torch.kernels import brick_kernels as bk
+
+        bk._launch_fine = self.real
+
+
 def checked_fine(name):
-    """brick_march's fine hook as the main path has it (fine_loop), with every
-    brick_fine launch held to the bit to brick_fine_plain on its input
-    (fine_loop's check), state and evt. The hook's ``errs`` collects each
-    launch's largest float difference."""
+    """A check for watched_fine that holds a brick_fine launch to the bit to
+    brick_fine_plain on its input over all lanes, state and evt, and
+    collects each launch's largest float difference in its ``errs``."""
     from raytracing_test_tpu_torch.kernels import brick_kernels as bk
 
-    def check(sc, s_in, blin, luts, budget, lanes, out, evt):
+    def check(sc, s_in, blin, luts, budget, lanes, out, evt, listing):
         p, pe = bk.brick_fine_plain(sc, s_in, blin, luts, budget)
-        hook.errs.append(state_parity(f"brick_fine {name} launch {len(hook.errs)}", out, p, evt, pe,
-                                      verbose=False))
+        check.errs.append(state_parity(f"brick_fine {name} launch {len(check.errs)}", out, p, evt,
+                                       pe, verbose=False))
 
-    def hook(sc, s, blin, cfg, budget, shadow, t):
-        return bk.fine_loop(sc, s, blin, cfg, budget, shadow, t, check=check)
-
-    hook.errs = []
-    return hook
+    check.errs = []
+    return check
 
 
 def brick_frame_parity(name, scene, pos, dirn, rcfg, time_s, card):
@@ -1032,8 +1062,9 @@ def brick_frame_parity(name, scene, pos, dirn, rcfg, time_s, card):
     cam = Camera(pos=torch.tensor(pos, device=dev), dir=torch.tensor(dirn, device=dev))
     dirs = ray_directions(cam, rcfg.width, rcfg.height)
     adv, fine = checked_advance(name), checked_fine(name)
-    cb, ab = bricks.render_rays_bricks(scene, cam.pos, dirs, rcfg, time_s=time_s,
-                                       fine_loop=fine, brick_loop=adv)
+    with watched_fine(fine):
+        cb, ab = bricks.render_rays_bricks(scene, cam.pos, dirs, rcfg, time_s=time_s,
+                                           fine_loop=bk.fine_loop, brick_loop=adv)
     torch.cuda.synchronize()
     print(f"parity bricks {name}: every brick_fine launch of the frame ({len(fine.errs)}) equal "
           f"to brick_fine_plain (state and evt), max_abs_err {max(fine.errs):.3e}; every "
@@ -1144,13 +1175,13 @@ def advance_launch_stats(scene, table, s, budget, width) -> dict:
     of each lane that changes, the bytes that show that a live lane stays
     (BRICK_WAIT_IN), 1 byte for each done lane, the table once, and 20
     operations per advancing iteration."""
-    from raytracing_test_tpu_torch.kernels import brick_kernels as bk
+    from raytracing_test_tpu_torch.render import bricks
 
     it, out = advance_iterations(scene, table, s, budget, with_state=True)
     n = it.shape[0]
     live = int((~s.done).sum())
     changed = torch.zeros_like(s.done)
-    for f in bk.WRITES:
+    for f in bricks.HOOK_WRITES:
         a, b = getattr(out, f), getattr(s, f)
         if a.is_floating_point():
             a, b = a.view(torch.int32), b.view(torch.int32)
@@ -1246,18 +1277,35 @@ def advance_frame(scene, pos, dirn, rcfg, card, label, reps=3):
     return sums
 
 
-def fine_launch_stats(scene, s_in, blin, luts, budget, lanes, out, evt) -> dict:
+def fine_launch_stats(scene, s_in, blin, luts, budget, lanes, out, evt, listing) -> dict:
     """What one brick_fine launch had to do (its input ``s_in``, its output
-    ``out``, ``evt``), and its bound from what its inputs need: each lane
-    launched (all N, or the K in ``lanes``) reads blin (4 B; a listed lane
-    also its list entry, 4 B) and writes evt (1 B); one in an occupied brick
-    (blin >= 0) also reads its done byte; one whose state or evt changes
-    reads its state (BRICK_STATE_IN) and writes it (BRICK_STATE_OUT); the
-    64-byte voxel rows of the bricks the live lanes stand in, the 32 bytes
-    of luts; 3 float32 operations per DDA step. ``full_bytes`` is the same
-    count for a launch over all N lanes, ``whole_bytes`` what a kernel moves
-    that loads and stores the whole state of every lane."""
-    from raytracing_test_tpu_torch.kernels import brick_kernels as bk
+    ``out`` and ``evt``; ``lanes``: None for a launch over all lanes, else
+    the K listed; ``listing``: it appends its event lanes to a list), and
+    its bound from what these inputs need, lane by lane:
+
+      every lane launched: blin read (4 B), evt written (1 B), and in a
+        list launch its list entry read (4 B);
+      a lane with a brick (blin >= 0): its done byte read;
+      a live one: its cell read (12 B), which shows whether it stands in
+        its brick;
+      one inside its brick: its mat (4 B: written where it changes, else
+        read to show that it stays) and the voxel of its cell;
+      one that steps: tmax and steps read (16 B), and step and abs_delta
+        (8 B) on each axis it steps along; cell and tmax (8 B) on those
+        axes, last_t, last_axis and steps (12 B) written;
+      one whose done changes: 1 B written;
+      a listing launch: 4 B for each event lane it appends, and its two
+        counters (8 B);
+
+    plus one 32-byte sector of each brick_mat row a lane inside its brick
+    reads (the least a read of the row moves; a lane reads a few of its 64
+    voxels) and the 32 bytes of luts; 3 float32 operations per DDA step.
+    ``full_bytes`` is the same count for a launch over all N lanes,
+    ``whole_bytes`` what a kernel moves that loads and stores the whole
+    state of every lane. Lanes that change without a step (a hit or an
+    event at their first cell) need no DDA field: ``no_step`` counts
+    them."""
+    from raytracing_test_tpu_torch.render import bricks
 
     n = blin.shape[0]
     sel = torch.ones(n, dtype=torch.bool, device=blin.device)
@@ -1265,39 +1313,53 @@ def fine_launch_stats(scene, s_in, blin, luts, budget, lanes, out, evt) -> dict:
         sel = torch.zeros_like(sel)
         sel[lanes.long()] = True
     changed = evt.clone()
-    for f in bk.WRITES:
+    for f in bricks.HOOK_WRITES:
         a, b = getattr(out, f), getattr(s_in, f)
         if a.is_floating_point():
             a, b = a.view(torch.int32), b.view(torch.int32)
         changed |= (a != b).reshape(n, -1).any(dim=1)
     if bool((changed & ~sel).any()):
         raise AssertionError("brick_fine changed a lane it was not given")
+    wc, in_w = bricks._wrap_window(scene, s_in.cell)
     occ = blin >= 0
-    live = occ & ~s_in.done & sel
-    rows = int(torch.unique(blin[live]).numel())
-    n_changed, n_occ = int(changed.sum()), int((occ & sel).sum())
-    k = int(sel.sum())
-    common = n_changed * (BRICK_STATE_IN + BRICK_STATE_OUT) + rows * 64 + luts.numel() * 4
-    nbytes = k * (4 + 1) + (4 * k if lanes is not None else 0) + n_occ + common
+    live = occ & ~s_in.done
+    inside = live & in_w & (bricks.brick_lin(scene, wc) == blin)
+    stepped = out.steps != s_in.steps
+    axes = int((out.cell != s_in.cell)[stepped].sum())
+    rows = int(torch.unique(blin[inside]).numel())
+    events = int(evt[sel].sum())
+    moved = (int(stepped.sum()) * 28 + axes * 16 + int((out.done != s_in.done).sum())
+             + rows * 32 + (luts.numel() * 4 if bool(inside.any()) else 0)
+             + (4 * events + 8 if listing else 0))
+
+    def need(m, listed):
+        k = int(m.sum())
+        return (k * (5 + (4 if listed else 0)) + int((occ & m).sum()) + 12 * int((live & m).sum())
+                + 4 * int((inside & m).sum()) + moved)
+
+    nbytes = need(sel, lanes is not None)
+    full = need(torch.ones_like(sel), False)
     steps = int((out.steps - s_in.steps).sum())
     ops = steps * BRICK_FINE_OPS_PER_STEP
-    return {"n": n, "launched": k, "live": int(live.sum()), "changed": n_changed,
-            "events": int(evt.sum()), "rows": rows, "steps": steps, "bytes": nbytes,
+    return {"n": n, "launched": int(sel.sum()), "live": int((live & sel).sum()),
+            "inside": int(inside.sum()), "changed": int(changed.sum()),
+            "no_step": int((changed & ~stepped).sum()), "stepped": int(stepped.sum()),
+            "events": events, "rows": rows, "steps": steps, "bytes": nbytes,
             "bound": bound(nbytes, ops), "kind": "full" if lanes is None else "list",
-            "full_bytes": n * 5 + int(occ.sum()) + common,
-            "full_bound": bound(n * 5 + int(occ.sum()) + common, ops)[0],
+            "full_bytes": full, "full_bound": bound(full, ops)[0],
             "whole_bytes": n * (BRICK_STATE_IN + BRICK_STATE_OUT + 4 + 1) + rows * 64
             + luts.numel() * 4}
 
 
 def fine_frame(scene, pos, dirn, rcfg, card, label, reps=3, each=False):
     """Every brick_fine launch of one brick frame on the main path's hooks:
-    per launch its work and bound (fine_launch_stats, from fine_loop's
-    check; brick_frame_parity holds the same frames' launches to
-    brick_fine_plain), its device time (launch_device_ms over ``reps`` frames); summed over the
-    frame by march and pass (a round's first launch, the glue passes after
-    it), with the lost time, the sum of (ms - bound). ``each`` prints every
-    launch. Returns the sums {"launches", "ms", "bound", "lost"}."""
+    per launch its work and bound (fine_launch_stats, through watched_fine;
+    brick_frame_parity holds the same frames' launches to
+    brick_fine_plain), its device time (launch_device_ms over ``reps``
+    frames); summed over the frame by march and pass (a round's first
+    launch, the glue passes after it), with the lost time, the sum of
+    (ms - bound). ``each`` prints every launch. Returns the sums
+    {"launches", "ms", "bound", "lost"}."""
     from raytracing_test_tpu_torch.kernels import brick_kernels as bk
     from raytracing_test_tpu_torch.render import bricks
     from raytracing_test_tpu_torch.render.camera import Camera, ray_directions
@@ -1307,17 +1369,19 @@ def fine_frame(scene, pos, dirn, rcfg, card, label, reps=3, each=False):
     dirs = ray_directions(cam, rcfg.width, rcfg.height)
     stats = []
 
-    def check(sc, s_in, blin, luts, budget, lanes, out, evt):
-        stats.append(fine_launch_stats(sc, s_in, blin, luts, budget, lanes, out, evt))
+    def check(sc, s_in, blin, luts, budget, lanes, out, evt, listing):
+        stats.append(fine_launch_stats(sc, s_in, blin, luts, budget, lanes, out, evt, listing))
 
     def fine(sc, s, blin, cfg, budget, shadow, t):
         first = len(stats)
-        out = bk.fine_loop(sc, s, blin, cfg, budget, shadow, t, check=check)
+        out = bk.fine_loop(sc, s, blin, cfg, budget, shadow, t)
         for k, st in enumerate(stats[first:]):
             st["march"], st["pass"] = ("shadow" if shadow else "primary"), k
         return out
 
-    bricks.render_rays_bricks(scene, cam.pos, dirs, rcfg, fine_loop=fine, brick_loop=bk.advance_loop)
+    with watched_fine(check):
+        bricks.render_rays_bricks(scene, cam.pos, dirs, rcfg, fine_loop=fine,
+                                  brick_loop=bk.advance_loop)
     ms = launch_device_ms(lambda: bk.render_rays_bricks_pallas(scene, cam.pos, dirs, rcfg),
                           "brick_fine", reps, per_call=len(stats))
     if len(ms) != len(stats):
@@ -1331,7 +1395,8 @@ def fine_frame(scene, pos, dirn, rcfg, card, label, reps=3, each=False):
             b, by = st["bound"]
             print(f"  {i:3d} {st['march']:7s} pass {st['pass']:2d} ({st['kind']}): "
                   f"{st['launched']:7d} lanes launched, {st['live']:7d} live, {st['changed']:7d} "
-                  f"change, {st['events']:6d} events, {st['steps']:8d} DDA steps; {st['ms']:.4f} ms, "
+                  f"change ({st['no_step']} without a step), {st['events']:6d} events, "
+                  f"{st['steps']:8d} DDA steps; {st['ms']:.4f} ms, "
                   f"bound {b:.4f} ({by}, {st['bytes']} B), share {b / st['ms']:.3f}")
     groups = {}
     for st in stats:
@@ -1340,8 +1405,9 @@ def fine_frame(scene, pos, dirn, rcfg, card, label, reps=3, each=False):
     for key, g in groups.items():
         t, b = sum(s["ms"] for s in g), sum(s["bound"][0] for s in g)
         print(f"  {key}: {len(g)} launches, {sum(s['launched'] for s in g)} lanes launched, "
-              f"{sum(s['live'] for s in g)} live, {sum(s['changed'] for s in g)} change, "
-              f"{sum(s['events'] for s in g)} events; {t:.4f} ms, bound {b:.4f}, lost "
+              f"{sum(s['live'] for s in g)} live, {sum(s['changed'] for s in g)} change "
+              f"({sum(s['no_step'] for s in g)} without a step), {sum(s['events'] for s in g)} "
+              f"events, {sum(s['bytes'] for s in g)} B needed; {t:.4f} ms, bound {b:.4f}, lost "
               f"{t - b:.4f} ms, share {b / t:.3f}")
     top = sorted(stats, key=lambda s: -(s["ms"] - s["bound"][0]))[:5]
     print("  most lost: " + "; ".join(
@@ -1355,7 +1421,8 @@ def fine_frame(scene, pos, dirn, rcfg, card, label, reps=3, each=False):
     print(f"brick_fine {label} frame: {sums['launches']} launches "
           f"({sum(s['kind'] == 'list' for s in stats)} over a list of event lanes), "
           f"{sum(s['launched'] for s in stats)} lane slots launched, "
-          f"{sum(s['changed'] for s in stats)} lanes change; {sums['ms']:.4f} ms, bound "
+          f"{sum(s['changed'] for s in stats)} lanes change "
+          f"({sum(s['no_step'] for s in stats)} without a step); {sums['ms']:.4f} ms, bound "
           f"{sums['bound']:.4f} ms ({need} B needed), lost {sums['lost']:.4f} ms, share "
           f"{sums['bound'] / sums['ms']:.3f}; launches over all lanes would need {full} B "
           f"({sum(s['full_bound'] for s in stats):.4f} ms); loading and storing every lane's "
@@ -1373,6 +1440,7 @@ def brick_launches(scene, inputs, rcfg, card, label):
     brick_fine bound is what that launch's inputs need (fine_launch_stats)."""
     from raytracing_test_tpu_torch.kernels import brick_kernels as bk
     from raytracing_test_tpu_torch.kernels import build
+    from raytracing_test_tpu_torch.render import bricks
 
     lib = build.library("brick_march")
     s_adv = inputs[("primary", 1)][2]
@@ -1381,7 +1449,7 @@ def brick_launches(scene, inputs, rcfg, card, label):
     luts = bk._prop_luts(scene, False, rcfg.enable_materials)
 
     def advance_fresh():
-        fresh = bk.writable(s_adv)
+        fresh = bricks.writable(s_adv)
         args, _ = bk._advance_args(scene, scene.brick_dist, fresh, rcfg.max_steps)
         if lib.brick_advance_launch(*args) != 0:
             raise AssertionError("a timing launch of brick_advance failed")
@@ -1394,14 +1462,16 @@ def brick_launches(scene, inputs, rcfg, card, label):
     adv_bytes = n * (BRICK_STATE_IN + BRICK_STATE_OUT) + scene.brick_dist.numel()
     adv_bound = bound(adv_bytes, iters * BRICK_ADVANCE_OPS_PER_ITER)
     fine_out, fine_evt = bk.brick_fine_plain(scene, s_fine, blin_fine, luts, rcfg.max_steps)
-    st = fine_launch_stats(scene, s_fine, blin_fine, luts, rcfg.max_steps, None, fine_out, fine_evt)
+    st = fine_launch_stats(scene, s_fine, blin_fine, luts, rcfg.max_steps, None, fine_out, fine_evt,
+                           False)
     fine_bound = st["bound"]
     for name, k_ms, nbytes, work, b in (
             ("brick_advance", adv_ms, adv_bytes,
              f"round 1, {n} lanes, {iters} advancing iterations", adv_bound),
             ("brick_fine", fine_ms, st["bytes"],
              f"round 2, {st['live']} lanes live in {st['rows']} occupied bricks, "
-             f"{st['changed']} change, {st['steps']} DDA steps", fine_bound)):
+             f"{st['changed']} change ({st['no_step']} without a step), {st['steps']} DDA "
+             f"steps", fine_bound)):
         print(f"timing {name} per launch, {label} ({work}): kernel {k_ms:.4f} ms; bound "
               f"{nbytes} bytes -> {b[0]:.4f} ms ({b[1]}), kernel at {b[0] / k_ms:.3f} of it "
               f"| {card}")

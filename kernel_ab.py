@@ -35,9 +35,11 @@ such tree has (``fused_march_call``, ``_launch_fwd``, ``_launch_bwd``,
                  states: the input of round 2's first launch, of the
                  march's first glue pass (the material glue applied to the
                  event lanes of the launch before; a tree whose
-                 brick_fine takes ``lanes`` runs that pass over the event
-                 lanes only, an older tree over all lanes; the CLI's view
-                 has no material event) and of round 8's first launch.
+                 ``_launch_fine`` takes ``lanes`` runs that pass over the
+                 event lanes only, in place on a copy of the state, an
+                 older tree over all lanes through ``brick_fine``; the
+                 CLI's view has no material event) and of round 8's first
+                 launch.
 
 The trees run in turns, forward then back (A, B, ..., B, A), so every tree
 is timed before and after every other. In each turn a kernel's time is the
@@ -453,13 +455,24 @@ def worker(tree: Path, first: bool, out_path: Path) -> int:
             cs.state_parity(f"  {case}", out, bk.brick_advance_plain(scene, scene.brick_dist, s,
                                                                      budget))
         calls.append((case, "brick_advance", fn))
-    lists = "lanes" in inspect.signature(bk.brick_fine).parameters
+    lists = "lanes" in inspect.signature(getattr(bk, "_launch_fine", lambda: None)).parameters
     result["fine_lists"] = lists
+
+    def listed(s, blin, luts, budget, lanes):
+        from raytracing_test_tpu_torch.render import bricks
+
+        out, evt = bricks.writable(s), torch.zeros_like(s.done)
+        bk._launch_fine(scene, out, blin, luts, budget, evt, lanes, lanes.numel())
+        return out, evt
+
     for name, s, blin, luts, budget, lanes in fine_cases(pkg, scene, dev):
         case = f"brick_fine {name}"
-        kw = {"lanes": lanes} if lists and lanes is not None else {}
-        fn = lambda s=s, blin=blin, luts=luts, budget=budget, kw=kw: bk.brick_fine(
-            scene, s, blin, luts, budget, **kw)
+        if lists and lanes is not None:
+            fn = lambda s=s, blin=blin, luts=luts, budget=budget, lanes=lanes: listed(
+                s, blin, luts, budget, lanes)
+        else:
+            fn = lambda s=s, blin=blin, luts=luts, budget=budget: bk.brick_fine(
+                scene, s, blin, luts, budget)
         out, evt = fn()
         result["digest"][case] = digest({**{f: getattr(out, f) for f in cs.STATE_FIELDS},
                                          "evt": evt})

@@ -57,11 +57,22 @@
 // brick_fine's design for this card (each step timed on the card, PERF.md):
 //  - In place, like brick_advance (fine_in_place). A lane with blin < 0
 //    reads its 4-byte blin, writes evt = 0 and returns; a done lane also
-//    reads its done byte; a lane out of its brick also its cell. Only a
-//    lane inside its brick loads the state, and it stores only the fields
-//    that changed: the DDA fields if it stepped, mat if it differs, done if
-//    it hit or ran out of budget. Loading and storing the whole state of
-//    every lane moved 65 + 41 + 5 bytes a lane, most of them for nothing.
+//    reads its done byte; a lane out of its brick also its cell. A lane
+//    inside its brick reads its mat and the voxel of its cell; if that is
+//    a hit or an event it writes mat (if it changed) and done (on a hit)
+//    and returns without loading the DDA fields. Only a lane that steps
+//    loads them (tmax, step, abs_delta, steps: 40 bytes) and stores the
+//    DDA fields, mat if it differs and done if it ended. Most lanes that
+//    change in a glue pass meet water or glass again at once and take no
+//    step. Loading and storing the whole state of every lane moved
+//    65 + 41 + 5 bytes a lane, most of them for nothing. Loading the
+//    state of every lane inside its brick before its first voxel (timed
+//    against this with kernel_ab.py on an NVIDIA H100 80GB HBM3 at 700 W)
+//    took 1.48-1.49 ms over the 1024^2 bench frame's launches against
+//    1.31, and made the 512^2 frame's round-2 launch, where nearly every
+//    lane is inside its brick, 3% slower than the whole-state kernel
+//    (0.0092-0.0094 ms against 0.0089-0.0090); deferred, it takes
+//    0.0087-0.0088.
 //  - The glue passes launch over their event lanes only. A launch can
 //    append the lanes whose evt it sets to an int32 list (one warp-
 //    aggregated atomicAdd on a device counter per warp with events); the
@@ -253,38 +264,50 @@ RT_DEV bool mask_bit(const uint32_t w[4], int m) {
   return ((word >> (m & 31)) & 1u) != 0;
 }
 
-// The fine phase of one lane inside brick blin. Returns the event flag.
-RT_DEV bool fine_lane(const uint8_t* bmat, const uint32_t hit[4], const uint32_t evt[4],
-                      const Grid& G, int budget, int blin, Lane& r) {
-  if (blin < 0) return false;
+// The voxel of window cell (wx, wy, wz) in brick blin's row.
+RT_DEV int voxel(const uint8_t* bmat, const Grid& G, int blin, int wx, int wy, int wz) {
   const int sh = G.shift;
   const int msk = (1 << sh) - 1;
-  const uint8_t* row = bmat + ((size_t)blin << (3 * sh));
-  for (int it = 0; it < kFineCap; ++it) {
+  const int vox = ((((wx & msk) << sh) | (wy & msk)) << sh) | (wz & msk);
+  return (int)RT_LDG(bmat + ((size_t)blin << (3 * sh)) + vox);
+}
+
+// One DDA step of a lane (render/bricks.py:dda_step), then the budget.
+RT_DEV void fine_step(Lane& r, int budget) {
+  const int ax = rt::argmin_axis(r.t[0], r.t[1], r.t[2]);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (k == ax) {
+      r.lt = r.t[k];
+      r.c[k] += r.s[k] > 0.0f ? 1 : -1;
+      r.t[k] = r.t[k] + r.a[k];
+    }
+  }
+  r.la = ax;
+  r.steps += 1;
+  if (r.steps >= budget) r.done = true;
+}
+
+// The fine phase of one lane inside brick blin after its first iteration
+// (the caller read the voxel of its first cell, set r.mat, found no hit
+// and no event there, and loaded the DDA fields): that iteration's step,
+// then single steps until a hit, an event, leaving the brick, the budget
+// or kFineCap iterations in all. Returns the event flag.
+RT_DEV bool fine_lane(const uint8_t* bmat, const uint32_t hit[4], const uint32_t evt[4],
+                      const Grid& G, int budget, int blin, Lane& r) {
+  fine_step(r, budget);
+  for (int it = 1; it < kFineCap; ++it) {
     const int wx = r.c[0] & 1023, wy = r.c[1] & 1023, wz = r.c[2] & 1023;
     const bool in_w = wx < G.sx && wy < G.sy && wz < G.sz;
     if (r.done || !in_w || brick_lin(G, wx, wy, wz) != blin) break;
-    const int vox = ((((wx & msk) << sh) | (wy & msk)) << sh) | (wz & msk);
-    const int m = (int)RT_LDG(row + vox);
+    const int m = voxel(bmat, G, blin, wx, wy, wz);
     r.mat = m;
     if (m != 0 && mask_bit(hit, m)) {
       r.done = true;
       break;
     }
     if (m != 0 && mask_bit(evt, m)) return true;
-    // one DDA step
-    const int ax = rt::argmin_axis(r.t[0], r.t[1], r.t[2]);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      if (k == ax) {
-        r.lt = r.t[k];
-        r.c[k] += r.s[k] > 0.0f ? 1 : -1;
-        r.t[k] = r.t[k] + r.a[k];
-      }
-    }
-    r.la = ax;
-    r.steps += 1;
-    if (r.steps >= budget) r.done = true;
+    fine_step(r, budget);
   }
   return false;
 }
@@ -292,14 +315,20 @@ RT_DEV bool fine_lane(const uint8_t* bmat, const uint32_t hit[4], const uint32_t
 // brick_fine on lane i of a writable march state (S and O name the same
 // tensors) -> the event flag. A lane without a brick reads its blin, a done
 // lane also its done byte, a lane out of its brick also its cell; each
-// returns with nothing written. A lane inside its brick loads the state,
-// marches, and stores the fields that changed.
+// returns with nothing written. A lane inside its brick reads the voxel of
+// its cell and its mat: a hit or an event there writes mat (if it
+// changed) and done (on a hit) and takes no step, so it never loads the
+// DDA fields. Only a lane that steps loads them, marches, and stores the
+// DDA fields, mat if it changed and done if it ended.
 RT_DEV bool fine_in_place(const State& S, const Out& O, const uint8_t* bmat,
                           const int32_t* luts, const int32_t* blin, const Grid& G, int budget,
                           int i) {
   const int b = RT_LDG(blin + i);
   if (b < 0 || S.done[i]) return false;
-  const int wx = S.cell[3 * i] & 1023, wy = S.cell[3 * i + 1] & 1023, wz = S.cell[3 * i + 2] & 1023;
+  Lane r;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) r.c[k] = S.cell[3 * i + k];
+  const int wx = r.c[0] & 1023, wy = r.c[1] & 1023, wz = r.c[2] & 1023;
   if (!(wx < G.sx && wy < G.sy && wz < G.sz) || brick_lin(G, wx, wy, wz) != b) return false;
   uint32_t hit[4], evt[4];
 #pragma unroll
@@ -307,20 +336,32 @@ RT_DEV bool fine_in_place(const State& S, const Out& O, const uint8_t* bmat,
     hit[k] = (uint32_t)RT_LDG(luts + k);
     evt[k] = (uint32_t)RT_LDG(luts + 4 + k);
   }
-  Lane r;
-  load(S, i, r);
-  const int mat0 = r.mat, steps0 = r.steps;
-  const bool ev = fine_lane(bmat, hit, evt, G, budget, b, r);
-  if (r.steps != steps0) {  // it stepped: the DDA fields
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      O.cell[3 * i + k] = r.c[k];
-      O.tmax[3 * i + k] = r.t[k];
-    }
-    O.lt[i] = r.lt;
-    O.la[i] = r.la;
-    O.steps[i] = r.steps;
+  const int mat0 = S.mat[i];
+  const int m = voxel(bmat, G, b, wx, wy, wz);
+  const bool stop_hit = m != 0 && mask_bit(hit, m);
+  if (stop_hit || (m != 0 && mask_bit(evt, m))) {  // no step: mat, done and evt
+    if (m != mat0) O.mat[i] = m;
+    if (stop_hit) O.done[i] = 1;
+    return !stop_hit;
   }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    r.t[k] = S.tmax[3 * i + k];
+    r.s[k] = S.step[3 * i + k];
+    r.a[k] = S.abs_delta[3 * i + k];
+  }
+  r.steps = S.steps[i];
+  r.mat = m;
+  r.done = false;
+  const bool ev = fine_lane(bmat, hit, evt, G, budget, b, r);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {  // it stepped: the DDA fields
+    O.cell[3 * i + k] = r.c[k];
+    O.tmax[3 * i + k] = r.t[k];
+  }
+  O.lt[i] = r.lt;
+  O.la[i] = r.la;
+  O.steps[i] = r.steps;
   if (r.mat != mat0) O.mat[i] = r.mat;
   if (r.done) O.done[i] = 1;
   return ev;

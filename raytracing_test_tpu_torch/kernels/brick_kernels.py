@@ -27,7 +27,7 @@ raise. There is no fallback from one to the other. ``LAUNCHES_ADVANCE`` and
 
 Both kernels work in place on a writable march state. ``brick_advance`` and
 ``brick_fine`` leave their caller's state as it is: they copy the fields
-the kernel writes (``writable``) and launch on the copy. The brick path's
+the kernel writes (``bricks.writable``) and launch on the copy. The brick path's
 hooks ``advance_loop`` and ``fine_loop`` make no copy: ``brick_march`` hands
 a march with hooks its own copy of those fields once, at its start (primary
 and shadow), and every later state of the march is either written in place
@@ -58,8 +58,6 @@ LAUNCHES_FINE = 0  # brick_fine launches in this process (never the plain path)
 _GLUE_CAP = 64  # material glue passes per fine phase (make_pallas_loops :552)
 
 brick_advance_plain = bricks._brick_loop
-WRITES = bricks.HOOK_WRITES  # the fields of the march state both kernels write in place
-writable = bricks.writable
 
 
 def _prop_luts(scene: Scene, shadow: bool, enable_materials: bool) -> torch.Tensor:
@@ -176,9 +174,9 @@ def _advance_args(scene: Scene, table: torch.Tensor, s: _March, budget: int):
 
 
 def _written_in_place(s: _March, what: str) -> None:
-    """The fields in WRITES are written in place, so they must be contiguous
-    already (a copy would take the writes)."""
-    for f in WRITES:
+    """The fields in bricks.HOOK_WRITES are written in place, so they must be
+    contiguous already (a copy would take the writes)."""
+    for f in bricks.HOOK_WRITES:
         if not getattr(s, f).is_contiguous():
             raise ValueError(f"{what}: {f} must be contiguous, it is written in place")
 
@@ -239,7 +237,7 @@ def brick_advance(scene: Scene, table: torch.Tensor, s: _March, budget: int) -> 
     kernel in place on a copy of the fields it writes (or raise)."""
     if _device(scene, s, "brick_advance").type == "cpu":
         return brick_advance_plain(scene, table, s, budget)
-    return _launch_advance(scene, table, writable(s), budget)
+    return _launch_advance(scene, table, bricks.writable(s), budget)
 
 
 def advance_loop(scene: Scene, table: torch.Tensor, s: _March, budget: int) -> _March:
@@ -282,28 +280,15 @@ def _launch_fine(scene: Scene, s: _March, blin, luts, budget: int, evt, lanes=No
     LAUNCHES_FINE += 1
 
 
-def brick_fine(scene: Scene, s: _March, blin: torch.Tensor, luts: torch.Tensor, budget: int,
-               lanes=None):
+def brick_fine(scene: Scene, s: _March, blin: torch.Tensor, luts: torch.Tensor, budget: int):
     """Kernel B on a march state -> (state, evt bool[N]); ``s`` is left as it
-    is. ``lanes`` (int32 [K]): march only these lanes (a glue pass marches
-    the event lanes of the launch before); the others come back as they are,
-    with evt 0. CPU tensors run ``brick_fine_plain`` (blin -1 on the lanes
-    not listed); CUDA tensors launch the kernel in place on a copy of the
-    fields it writes (or raise)."""
+    is. CPU tensors run ``brick_fine_plain``; CUDA tensors launch the kernel
+    over all lanes in place on a copy of the fields it writes (or raise)."""
     if _device(scene, s, "brick_fine").type == "cpu":
-        if lanes is not None:
-            keep = torch.zeros_like(s.done)
-            keep[lanes.long()] = True
-            blin = torch.where(keep, blin, torch.full_like(blin, -1))
         return brick_fine_plain(scene, s, blin, luts, budget)
-    out = writable(s)
-    N, dev = s.cell.shape[0], s.cell.device
-    if lanes is None:
-        evt = torch.empty(N, dtype=torch.bool, device=dev)
-        _launch_fine(scene, out, blin, luts, budget, evt)
-    else:
-        evt = torch.zeros(N, dtype=torch.bool, device=dev)
-        _launch_fine(scene, out, blin, luts, budget, evt, lanes, int(lanes.shape[0]))
+    out = bricks.writable(s)
+    evt = torch.empty(s.cell.shape[0], dtype=torch.bool, device=s.cell.device)
+    _launch_fine(scene, out, blin, luts, budget, evt)
     return out, evt
 
 
@@ -324,7 +309,7 @@ def material_glue(scene: Scene, s: _March, evt, cfg: RenderConfig, budget: int, 
 
 
 def fine_loop(scene: Scene, s: _March, blin, cfg: RenderConfig, budget: int, shadow: bool,
-              time_s, check=None):
+              time_s):
     """``brick_march``'s fine hook on kernel B: run it, then (primary path,
     materials on) apply ``material_glue`` to the event lanes and run it again
     until no event is left: the marching sequence of the plain
@@ -334,43 +319,27 @@ def fine_loop(scene: Scene, s: _March, blin, cfg: RenderConfig, budget: int, sha
     the first launch runs all N lanes, each glue pass only the event lanes
     of the launch before, from the list that launch wrote on the card (two
     lists in turn; their counts are read back, one 4-byte read a pass).
-    ``check(scene, s_in, blin, luts, budget, lanes, s_out, evt)``, where
-    given, sees every launch with a copy of its input (``lanes``: None for a
-    launch over all lanes; ``chip_smoke.py`` holds each launch to
-    ``brick_fine_plain``). CPU tensors run ``brick_fine_plain`` on all lanes
-    for every pass (``check`` sees those too)."""
+    CPU tensors run ``brick_fine_plain`` on all lanes for every pass."""
     luts = _prop_luts(scene, shadow, cfg.enable_materials)
     glue = not shadow and cfg.enable_materials
     if _device(scene, s, "brick_fine").type == "cpu":
-        def plain(s):
-            out, evt = brick_fine_plain(scene, s, blin, luts, budget)
-            if check is not None:
-                check(scene, s, blin, luts, budget, None, out, evt)
-            return out, evt
-
-        s, evt = plain(s)
+        s, evt = brick_fine_plain(scene, s, blin, luts, budget)
         for _ in range(_GLUE_CAP if glue else 0):
             if not bool(evt.any()):
                 break
-            s, evt = plain(material_glue(scene, s, evt, cfg, budget, time_s))
+            s, evt = brick_fine_plain(scene, material_glue(scene, s, evt, cfg, budget, time_s),
+                                      blin, luts, budget)
         return s
 
     dev = s.cell.device
     N = s.cell.shape[0]
     evt = torch.empty(N, dtype=torch.bool, device=dev)
-
-    def launch(s, lanes=None, k=0, list_out=None, counts=None, w=0):
-        s_in = writable(s) if check is not None else None
-        _launch_fine(scene, s, blin, luts, budget, evt, lanes, k, list_out, counts, w)
-        if check is not None:
-            check(scene, s_in, blin, luts, budget, None if lanes is None else lanes[:k], s, evt)
-
     if not glue:
-        launch(s)
+        _launch_fine(scene, s, blin, luts, budget, evt)
         return s
     counts = torch.zeros(2, dtype=torch.int32, device=dev)
     lanes = torch.empty(N, dtype=torch.int32, device=dev)
-    launch(s, list_out=lanes, counts=counts, w=0)
+    _launch_fine(scene, s, blin, luts, budget, evt, list_out=lanes, counts=counts, w=0)
     w = 0
     for _ in range(_GLUE_CAP):
         k = int(counts[w])
@@ -378,7 +347,7 @@ def fine_loop(scene: Scene, s: _March, blin, cfg: RenderConfig, budget: int, sha
             break
         s = material_glue(scene, s, evt, cfg, budget, time_s)
         nxt = torch.empty(k, dtype=torch.int32, device=dev)
-        launch(s, lanes, k, nxt, counts, 1 - w)
+        _launch_fine(scene, s, blin, luts, budget, evt, lanes, k, nxt, counts, 1 - w)
         lanes, w = nxt, 1 - w
     return s
 

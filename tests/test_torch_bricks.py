@@ -370,7 +370,7 @@ class _PlainAdvanceLibrary:
         views = {k: _view(*v) for k, v in mem.items()}
         s = self.base._replace(**{k: v.clone() for k, v in views.items()})
         out = tbk.brick_advance_plain(self.scene, self.scene.brick_dist, s, budget)
-        for f in tbk.WRITES:
+        for f in tbricks.HOOK_WRITES:
             views[f].copy_(getattr(out, f))
         self.launches += 1
         return 0
@@ -400,21 +400,21 @@ def test_brick_advance_kernel_path_owns_its_writes(terrain_scenes, monkeypatch):
     monkeypatch.setattr(tbk, "_stream", lambda dev: 0)
     monkeypatch.setattr(build, "_LIBS", {"brick_march": lib})
     monkeypatch.setattr(tbk, "LAUNCHES_ADVANCE", tbk.LAUNCHES_ADVANCE)  # restored afterwards
-    before = {f: getattr(s, f).clone() for f in tbk.WRITES}
+    before = {f: getattr(s, f).clone() for f in tbricks.HOOK_WRITES}
     n0 = tbk.LAUNCHES_ADVANCE
 
     got = tbk.brick_advance(ts, ts.brick_dist, s, 150)
     assert tbk.LAUNCHES_ADVANCE == n0 + 1 == n0 + lib.launches
-    for f in tbk.WRITES:
+    for f in tbricks.HOOK_WRITES:
         assert torch.equal(getattr(s, f), before[f]), f  # the caller's state is untouched
         assert torch.equal(getattr(got, f), getattr(want, f)), f
         assert getattr(got, f).data_ptr() != getattr(s, f).data_ptr(), f
 
-    mine = tbk.writable(s)
-    ptrs = {f: getattr(mine, f).data_ptr() for f in tbk.WRITES}
+    mine = tbricks.writable(s)
+    ptrs = {f: getattr(mine, f).data_ptr() for f in tbricks.HOOK_WRITES}
     out = tbk.advance_loop(ts, ts.brick_dist, mine, 150)
     assert tbk.LAUNCHES_ADVANCE == n0 + 2 == n0 + lib.launches
-    for f in tbk.WRITES:
+    for f in tbricks.HOOK_WRITES:
         assert getattr(out, f).data_ptr() == ptrs[f], f  # written in place
         assert torch.equal(getattr(mine, f), getattr(want, f)), f
 
@@ -454,7 +454,7 @@ class _PlainFineLibrary:
         s = self.base._replace(**{k: v.clone() for k, v in views.items()})
         out, e = tbk.brick_fine_plain(self.scene, s, torch.where(keep, b, torch.full_like(b, -1)),
                                       _view(luts, i32, (8,)).clone(), budget)
-        for f in tbk.WRITES:
+        for f in tbricks.HOOK_WRITES:
             views[f].copy_(getattr(out, f))
         _view(evt, torch.bool, (N,))[ids] = e[ids]
         if list_out:
@@ -490,29 +490,29 @@ def fine_kernel_path(mat_scenes, round_states, monkeypatch):
 
 def test_brick_fine_leaves_its_input_unchanged(fine_kernel_path):
     """brick_fine's CUDA branch, whose kernel writes in place, on a stand-in
-    library: the caller's state is left as it was, and the result (over all
-    lanes, and over a list of lanes after the glue) is brick_fine_plain's."""
+    library: the caller's state is left as it was and the result is
+    brick_fine_plain's; a launch over the event lanes after the glue, in
+    place on a writable copy, is brick_fine_plain's over all lanes."""
     ts, s, blin, lib = fine_kernel_path
     luts = tbk._prop_luts(ts, False, True)
-    before = {f: getattr(s, f).clone() for f in tbk.WRITES}
+    before = {f: getattr(s, f).clone() for f in tbricks.HOOK_WRITES}
     got, evt = tbk.brick_fine(ts, s, blin, luts, 150)
     want, evt_want = tbk.brick_fine_plain(ts, s, blin, luts, 150)
     assert tbk.LAUNCHES_FINE == lib.launches == 1 and bool(evt_want.any())
     assert torch.equal(evt, evt_want)
-    for f in tbk.WRITES:
+    for f in tbricks.HOOK_WRITES:
         assert torch.equal(getattr(s, f), before[f]), f  # the caller's state is untouched
         assert torch.equal(getattr(got, f), getattr(want, f)), f
         assert getattr(got, f).data_ptr() != getattr(s, f).data_ptr(), f
 
     s2 = tbk.material_glue(ts, got, evt, RenderConfig(width=24, height=24), 150, CASES[1][2])
     lanes = torch.nonzero(evt).flatten().to(torch.int32)
-    before = {f: getattr(s2, f).clone() for f in tbk.WRITES}
-    got2, evt2 = tbk.brick_fine(ts, s2, blin, luts, 150, lanes=lanes)
+    got2, evt2 = tbricks.writable(s2), evt.clone()
+    tbk._launch_fine(ts, got2, blin, luts, 150, evt2, lanes, lanes.numel())
     want2, evt_want2 = tbk.brick_fine_plain(ts, s2, blin, luts, 150)
-    assert lib.listed == [None, lanes.numel()]
+    assert lib.listed == [None, lanes.numel()] and tbk.LAUNCHES_FINE == 2
     assert torch.equal(evt2, evt_want2)
-    for f in tbk.WRITES:
-        assert torch.equal(getattr(s2, f), before[f]), f
+    for f in tbricks.HOOK_WRITES:
         assert torch.equal(getattr(got2, f), getattr(want2, f)), f
 
 
@@ -524,7 +524,7 @@ def test_fine_loop_kernel_path_works_in_place(fine_kernel_path):
     ts, s, blin, lib = fine_kernel_path
     rcfg = RenderConfig(width=24, height=24, max_steps=150, shadow_steps=40)
     time_s = CASES[1][2]
-    mine = tbk.writable(s)
+    mine = tbricks.writable(s)
     mat_ptr = mine.mat.data_ptr()
     got = tbk.fine_loop(ts, mine, blin, rcfg, 150, False, time_s)
     assert got.mat.data_ptr() == mat_ptr  # written in place; the glue never replaces mat
@@ -538,7 +538,7 @@ def test_fine_loop_kernel_path_works_in_place(fine_kernel_path):
               "abs_delta", "seg_origin", "color_mod", "ior", "reflected"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
 
-    strided = tbk.writable(s)._replace(tmax=s.tmax.t().contiguous().t())
+    strided = tbricks.writable(s)._replace(tmax=s.tmax.t().contiguous().t())
     with pytest.raises(ValueError, match="tmax must be contiguous"):
         tbk.fine_loop(ts, strided, blin, rcfg, 150, False, time_s)
 

@@ -507,7 +507,7 @@ def _poison_done(s, lanes=None):
 
 def _host_advance(lib, scene, s, budget):
     """brick_advance's host build in place on a writable copy of ``s``."""
-    got = bk.writable(s)
+    got = bricks.writable(s)
     Sx, Sy, Sz = scene.shape3
     err = lib.host_brick_advance(
         scene.brick_dist.data_ptr(), Sx, Sy, Sz, scene.brick_shift, int(scene.y_max), budget,
@@ -542,7 +542,7 @@ def test_host_brick_advance_exit_rules(host_lib):
         steps=torch.full((n,), 7, dtype=torch.int32), done=torch.zeros(n, dtype=torch.bool))
     want = bk.brick_advance_plain(scene, scene.brick_dist, s, 150)
     got = _host_advance(host_lib, scene, s, 150)
-    for f in bk.WRITES:
+    for f in bricks.HOOK_WRITES:
         g, w = getattr(got, f), getattr(want, f)
         if g.is_floating_point():
             g, w = g.view(torch.int32), w.view(torch.int32)
@@ -567,7 +567,7 @@ def test_host_brick_advance_matches_plain_version(host_lib, brick_rounds, view, 
     want = bk.brick_advance_plain(scene, scene.brick_dist, s, rcfg.max_steps)
     got = _host_advance(host_lib, scene, s, rcfg.max_steps)
     same_lane = torch.ones(n, dtype=torch.bool)
-    for f in bk.WRITES:
+    for f in bricks.HOOK_WRITES:
         g, w, s_in = getattr(got, f), getattr(want, f), getattr(s, f)
         if g.is_floating_point():
             g, w, s_in = (t.view(torch.int32) for t in (g, w, s_in))
@@ -600,7 +600,7 @@ def host_fine(host_lib, monkeypatch):
 def _assert_lanes_equal(got, want, evt_got=None, evt_want=None):
     """Every field the kernels write equal to the bit (and evt equal)."""
     n = got.cell.shape[0]
-    for f in bk.WRITES:
+    for f in bricks.HOOK_WRITES:
         g, w = getattr(got, f), getattr(want, f)
         if g.is_floating_point():
             g, w = g.view(torch.int32), w.view(torch.int32)
@@ -630,12 +630,12 @@ def test_host_brick_fine_matches_plain_version(host_fine, brick_rounds, view, rn
     s = _poison_done(s, idle)
     luts = bk._prop_luts(scene, False, True)
     want, evt_want = bk.brick_fine_plain(scene, s, blin, luts, rcfg.max_steps)
-    got = bk.writable(s)
+    got = bricks.writable(s)
     evt = torch.ones_like(s.done)  # every launched lane writes its evt
     host_fine(scene, got, blin, luts, rcfg.max_steps, evt)
     _assert_lanes_equal(got, want, evt, evt_want)
     untouched = idle | elsewhere
-    for f in bk.WRITES:  # those lanes as they went in, sentinels and all
+    for f in bricks.HOOK_WRITES:  # those lanes as they went in, sentinels and all
         g, w = getattr(got, f)[untouched], getattr(s, f)[untouched]
         if g.is_floating_point():
             g, w = g.view(torch.int32), w.view(torch.int32)
@@ -650,7 +650,7 @@ def _glue_input(scene, s, blin, luts, rcfg, time_s, run):
     """A full launch of the host build with its event list, then the
     material glue on its event lanes: (glue output, evt, list, count)."""
     n = s.cell.shape[0]
-    s = bk.writable(s)
+    s = bricks.writable(s)
     evt = torch.empty(n, dtype=torch.bool)
     lanes, counts = torch.full((n,), -1, dtype=torch.int32), torch.full((2,), 99, dtype=torch.int32)
     counts[0] = 0
@@ -674,7 +674,7 @@ def test_host_brick_fine_list_launch_on_a_glue_pass(host_fine, brick_rounds, rnd
     s2, evt, lanes, k = _glue_input(scene, s, blin, luts, rcfg, time_s, host_fine)
     assert k > 0
     want, evt_want = bk.brick_fine_plain(scene, s2, blin, luts, rcfg.max_steps)
-    got = bk.writable(s2)
+    got = bricks.writable(s2)
     nxt, counts = torch.full((k,), -1, dtype=torch.int32), torch.tensor([7, 0], dtype=torch.int32)
     host_fine(scene, got, blin, luts, rcfg.max_steps, evt, lanes, k, nxt, counts, 1)
     _assert_lanes_equal(got, want, evt, evt_want)
@@ -718,7 +718,7 @@ def test_host_kernels_drive_the_brick_frame(host_lib, worlds, monkeypatch, view)
     monkeypatch.setattr(bk, "LAUNCHES_ADVANCE", 0)
     s0 = fast._init_state(cam.pos, dirs, torch.ones(dirs.shape[0]))
     start, _, _ = fast.start_cell(scene, s0)
-    before = {f: getattr(start, f).clone() for f in bk.WRITES}
+    before = {f: getattr(start, f).clone() for f in bricks.HOOK_WRITES}
     glue = []
     real_glue = bk.material_glue
     monkeypatch.setattr(bk, "material_glue", lambda *a: glue.append(int(a[2].sum())) or real_glue(*a))
@@ -734,7 +734,7 @@ def test_host_kernels_drive_the_brick_frame(host_lib, worlds, monkeypatch, view)
             assert g == w, key
     bricks.brick_march(scene, start, rcfg, 150, time_s=time_s, fine_loop=bk.fine_loop,
                        brick_loop=bk.advance_loop)
-    for f in bk.WRITES:
+    for f in bricks.HOOK_WRITES:
         assert torch.equal(getattr(start, f), before[f]), f
     rounds = want_aux["march_rounds"]
     assert bk.LAUNCHES_FINE > rounds and bk.LAUNCHES_ADVANCE > rounds
