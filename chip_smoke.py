@@ -48,9 +48,16 @@ Phases (any failure raises, and the script exits non-zero):
                 c. train: five make_train_step_fused steps on one fixed batch
                    of 16384 rays from make_targets: finite losses, the fifth
                    below the first, one window_fwd and one window_bwd per step;
-                d. cli: ``fit --engine fused --steps 10``, in-process,
-                   and the time of a guide rebuild (the fit's re-threshold)
-                   with the share of the brick fields it now builds;
+                d. cli: ``fit --engine fused --steps 10``, in-process;
+                   then the guide rebuild on the card (guide_check) at the
+                   default world's 256x128x256 and world-512's 512x128x512,
+                   on init_params, after fit_world's steps, on a random
+                   field and on the world's solid cells: the distance kernel (csrc/chebyshev.cu) against
+                   its plain version on the same CUDA tensors, and the
+                   card-built guide against the numpy builders' (every
+                   field to the bit); one rebuild's host and device time
+                   and the kernel's launches against their bound, beside
+                   the numpy path's (readback, host builders, upload);
                 e. timing: seed, window_fwd, window_bwd, the whole
                    loss+backward, rays/s, the plain versions' times and the
                    peak device memory of a train step; window_bwd's kernel
@@ -751,6 +758,155 @@ def window_bwd_diagnosis(name, card, fw, wargs, g_surf, g_tend, surf, t_end):
             "window_fwd_device": f_dev}
 
 
+GUIDE_WORLDS = ("ref-world", "world-512")  # the benchmark's two worlds (bench_gpu/configs)
+GUIDE_FIT_STEPS = 6  # fit_world steps before the second check (rebuilds at 0, 2, 4)
+
+
+def guide_fields_equal(a, b) -> list:
+    """Names of the Scene fields in which ``a`` and ``b`` differ."""
+    import dataclasses
+
+    bad = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor):
+            same = x.dtype == y.dtype and x.shape == y.shape and torch.equal(x.cpu(), y.cpu())
+        else:
+            same = type(x) is type(y) and x == y
+        if not same:
+            bad.append(f.name)
+    return bad
+
+
+def guide_check(dev, card) -> dict:
+    """Phase 7d: the fit's guide rebuild on the card at both benchmark sizes.
+    fit_world's GUIDE_FIT_STEPS steps must build every guide from a tensor
+    and launch the distance kernel six times a rebuild (counters zeroed
+    just before the fit). For each field (init_params; fit_world's after
+    the steps; a random one; one occupied where the world is solid) the
+    distance kernel is held to its plain version on the same CUDA tensors,
+    grid_enc and both brick fields, and the guide guide_scene_from_params
+    builds on the card to the numpy builders' Scene of the same threshold,
+    every field to the bit. Then one rebuild's host time (synchronised) and
+    device busy time (torch.profiler), beside the numpy path's host time;
+    and the kernel's six passes against their plain version on the same
+    inputs (the fitted field's occupancy and its brick occupancy), with the
+    bound of what the function needs (the ids and brick occupancy read
+    once, grid_enc and the brick fields written once) and, beside it, the
+    traffic of the three-pass design. Returns the kernels-line entry of
+    the kernel (world-512)."""
+    from raytracing_test_tpu_torch.app import fit
+    from raytracing_test_tpu_torch.config import FitConfig, WorldConfig, world_for_size
+    from raytracing_test_tpu_torch.core import flatten
+    from raytracing_test_tpu_torch.kernels import chebyshev
+    from raytracing_test_tpu_torch.parallel import sharding
+    from raytracing_test_tpu_torch.worldgen import terrain
+
+    entry = {"name": "cheb_pass", "route": "cuda",
+             "source": "raytracing_test_tpu_torch/csrc/chebyshev.cu",
+             "replaces": "none (the host's core/flatten.py:_air_licences and "
+                         "chebyshev_distance_field)",
+             "launches": 0, "max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+             "bound_by": "bytes", "library_ms": None}
+    for label in GUIDE_WORLDS:
+        wcfg = WorldConfig() if label == "ref-world" else world_for_size(512)
+        shape = tuple(wcfg.grid_shape)
+        grid, pal = terrain.gen_world_grid(wcfg)
+        scene = flatten.scene_from_grid(grid, pal, dev)
+        solid = torch.from_numpy(grid != 0).to(dev)
+        del grid
+        fcfg = FitConfig(views=8, resolution=64, steps=GUIDE_FIT_STEPS, rethreshold_every=2,
+                         engine="fused")
+        flatten.SCENES_FROM_NUMPY = flatten.SCENES_FROM_TENSOR = chebyshev.LAUNCHES = 0
+        fitted, _ = fit.fit_world(scene, shape, fcfg, log_every=10 ** 9)
+        built = (flatten.SCENES_FROM_NUMPY, flatten.SCENES_FROM_TENSOR)
+        fit_launches = chebyshev.LAUNCHES
+        print(f"guide {label}: fit_world's {GUIDE_FIT_STEPS} steps built (numpy, tensor) "
+              f"{built} Scenes, {fit_launches} cheb_pass launches")
+        if built != (0, 3) or fit_launches != 6 * built[1]:
+            raise AssertionError(f"guide {label}: fit_world built (numpy, tensor) {built} "
+                                 f"Scenes with {fit_launches} cheb_pass launches, expected "
+                                 f"(0, 3) and 18")
+        rnd = sharding.init_params(shape, dev)
+        with torch.no_grad():
+            gen = torch.Generator(device=dev).manual_seed(7)
+            rnd.density_raw.copy_(torch.randn(shape, device=dev, generator=gen) * 1.5 - 3.5)
+            world = sharding.init_params(shape, dev)  # occupied where the world is solid
+            world.density_raw.copy_(torch.where(solid, 5.0, -10.0))
+        s = flatten.pick_brick_shift(shape)
+
+        def brick_occ(occ):
+            b = occ.reshape(shape[0] >> s, 1 << s, shape[1] >> s, 1 << s,
+                            shape[2] >> s, 1 << s).amax(dim=(1, 3, 5))
+            return torch.stack([b, b])  # brick_dist's and brick_dist_shadow's
+
+        for which, p in (("init_params", sharding.init_params(shape, dev)),
+                         (f"after {GUIDE_FIT_STEPS} fit steps", fitted), ("random field", rnd),
+                         ("the world's solid cells", world)):
+            occ = sharding.guide_occupancy(p)
+            k_enc = chebyshev.distance(occ, 32, licence=True)
+            p_enc = chebyshev.distance_plain(occ, 32, licence=True)
+            bocc = brick_occ(occ)
+            k_b, p_b = chebyshev.distance(bocc, 8), chebyshev.distance_plain(bocc, 8)
+            guide = sharding.guide_scene_from_params(p)
+            want = flatten.scene_from_grid(occ.cpu().numpy(), sharding.guide_palette(), dev)
+            bad = guide_fields_equal(guide, want)
+            share = float(occ.float().mean())
+            print(f"guide {label} {which}: occupied share {share:.4f}, y_max {guide.y_max}; "
+                  f"kernel vs plain: grid_enc {torch.equal(k_enc, p_enc)}, brick fields "
+                  f"{torch.equal(k_b, p_b)}; card guide vs numpy guide: "
+                  f"{'equal in every field' if not bad else 'differs in ' + ', '.join(bad)}")
+            if not torch.equal(k_enc, p_enc) or not torch.equal(k_b, p_b) or bad:
+                raise AssertionError(f"guide {label} {which}: the card's guide is not the "
+                                     f"numpy builders'")
+
+        # one rebuild on the fitted field: the card path, then the path it
+        # replaced (the float density read back, thresholded by numpy)
+        p = fitted
+        sharding.guide_scene_from_params(p)
+        torch.cuda.synchronize()
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            sharding.guide_scene_from_params(p)
+        card_ms = (time.perf_counter() - t0) * 1e3 / reps
+        per_name = profile_step(lambda: sharding.guide_scene_from_params(p), card, steps=reps,
+                                label=f"guide rebuild {label} on the card")
+        busy = sum(sum(v) for v in per_name.values()) / reps / 1e3
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            dens = (torch.nn.functional.softplus(p.density_raw) * 25.0).cpu().numpy()
+        flatten.scene_from_grid((dens > 1.0).astype(np.uint8), sharding.guide_palette(), dev)
+        torch.cuda.synchronize()
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+        print(f"guide rebuild {label} {shape}: card {card_ms:.3f} ms host (synchronised), "
+              f"device busy {busy:.4f} ms; numpy path {numpy_ms:.1f} ms host (readback, "
+              f"builders, upload) | {card}")
+
+        # the kernel's six passes and their plain version, on the same inputs
+        occ = sharding.guide_occupancy(p)
+        bocc = brick_occ(occ)
+        kernel = lambda: (chebyshev.distance(occ, 32, licence=True), chebyshev.distance(bocc, 8))
+        plain = lambda: (chebyshev.distance_plain(occ, 32, licence=True),
+                         chebyshev.distance_plain(bocc, 8))
+        cheb = launch_device_ms(kernel, "cheb_", reps=reps, per_call=6)
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        n, nb = occ.numel(), bocc.numel()
+        floor_ms = bound(2 * n + 2 * nb, 0)[0]  # ids and brick occupancy in, fields out
+        design = [2 * n, 2 * n, 3 * n] + [2 * nb] * 3  # grid_enc z y x (ids read in x), bricks
+        design_ms = [bound(b, 0)[0] for b in design]
+        print(f"  cheb_pass launches (grid_enc z y x, bricks z y x) ms "
+              f"{' '.join(f'{v:.4f}' for v in cheb)}, sum {sum(cheb):.4f}; plain version "
+              f"{plain_ms:.3f} ms; bound of the function ({2 * n + 2 * nb} B) "
+              f"{floor_ms:.4f} ({floor_ms / sum(cheb):.3f}); the three-pass design's traffic "
+              f"{sum(design)} B, {sum(design_ms):.4f} ms ({sum(design_ms) / sum(cheb):.3f}) "
+              f"| {card}")
+        if label == "world-512":
+            entry.update(launches=fit_launches, ms=sum(cheb), plain_ms=plain_ms,
+                         bound_ms=floor_ms)
+    return entry
+
+
 def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
     from raytracing_test_tpu_torch.app import fit
     from raytracing_test_tpu_torch.config import WorldConfig
@@ -810,25 +966,10 @@ def train_phase(dev, card, side, grid, pal, scene, cli, fm, fw):
           f"main-path launches {counts}, fused_march {march_launches}")
     if counts != {"window_fwd": 15, "window_bwd": 15}:
         raise AssertionError(f"train path launches {counts}, expected 15 each")
-    # what the brick fields add to a guide rebuild (the fit re-thresholds
-    # every rethreshold_every steps; scene_from_grid now builds them)
-    from raytracing_test_tpu_torch.config import FitConfig
-    from raytracing_test_tpu_torch.core.flatten import build_brick_fields
-
-    t0 = time.perf_counter()
-    guide = sharding.guide_scene_from_params(params)
-    torch.cuda.synchronize()
-    t_guide = time.perf_counter() - t0
-    with torch.no_grad():
-        occ = (torch.nn.functional.softplus(params.density_raw) * 25.0 > 1.0).to(torch.uint8)
-    occ = occ.cpu().numpy()
-    t0 = time.perf_counter()
-    build_brick_fields(occ, guide.flags.cpu().numpy())
-    print(f"guide rebuild (once per {FitConfig().rethreshold_every} fit steps): "
-          f"{t_guide:.3f} s, of which the brick fields {time.perf_counter() - t0:.3f} s (host)")
+    guide = guide_check(dev, card)
 
     # e. timing at the bench shapes (1024^2 rays x 24 steps)
-    out = {"march_launches": march_launches, "seeds": counts["window_fwd"],
+    out = {"march_launches": march_launches, "seeds": counts["window_fwd"], "guide": guide,
            "steps": {TRAIN_BATCH: len(losses), CLI_BATCH: counts["window_fwd"] - len(losses)}}
     field = _pack_fields(ds)
     _, _, cell, tmax, istep, absd = fw.window_inputs(shape3, cam.pos, dirs, seed)
@@ -1207,7 +1348,10 @@ def launch_device_ms(fn, kernel: str, reps: int, per_call: int = 1) -> list:
     in every session of two runs on the card): with one launch a call, the
     mean of the launches it saw (at least half of them) is taken; with more,
     a session that saw another count than reps x per_call is made again, up
-    to three times."""
+    to three times. Each session starts with a one-element fill that no
+    ``kernel`` name matches, in case the event lost is a session's first
+    kernel (six bare cheb_pass launches a call lost one of 30 in each of
+    three sessions; inside a rebuild, after other kernels, none was lost)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1215,6 +1359,8 @@ def launch_device_ms(fn, kernel: str, reps: int, per_call: int = 1) -> list:
     torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -2815,6 +2961,7 @@ def run(dev: torch.device, side: int) -> int:
             "library_ms": None,
         })
     kernels += brick_kernels
+    kernels.append(train["guide"])
 
     # 9. the prox seed and the prox-seeded window render
     prox_entry, prox_passes = prox_phase(dev, card, side, grid, pal, scene, cli)

@@ -27,6 +27,13 @@ The scene carries what the march and shading read:
     all-air box of radius d - 1 bricks); ``brick_dist_shadow``, the same with
     bricks that hold only LIQUID counted as air (shadow rays skip LIQUID).
 
+``scene_from_grid`` takes a numpy grid, built on the host by the numpy
+builders below, or a u8 tensor, built on that tensor's device
+(``_scene_from_tensor``: the distance fields by the kernel of
+``kernels/chebyshev.py``, the rest by PyTorch operations); both give the
+same fields bit for bit. ``SCENES_FROM_NUMPY`` and ``SCENES_FROM_TENSOR``
+count the Scenes each path built.
+
 The reference packs the two distance fields as f32 one-hot tables of nibble
 pairs (``brick_nib``, ``brick_nib_shadow``) only so that its TPU matrix unit
 can look them up (``ops/mxu_lookup.py:68-126``); on the card one u8 load
@@ -50,6 +57,9 @@ MACRO_SHIFT = 2  # macro cells are 4^3 voxels
 BRICK_DIST_CAP = 8  # max brick-level Chebyshev distance (licence <= 7 bricks)
 PROX_BRICK = 8  # edge of the bricks whose first entry stops a prox march
 PROX_AIR = 127  # prox_enc code of an air cell in an occupied brick (a stop cell)
+
+SCENES_FROM_NUMPY = 0  # Scenes scene_from_grid built from a numpy grid
+SCENES_FROM_TENSOR = 0  # Scenes scene_from_grid built from a tensor, on its device
 
 
 @dataclass(frozen=True)
@@ -261,8 +271,15 @@ def world_y_max(grid: np.ndarray) -> int:
     return int(solid_y.max()) + 1 if len(solid_y) else 0
 
 
-def scene_from_grid(grid: np.ndarray, pal: Palette, device) -> Scene:
-    """Build the render Scene on ``device`` from a dense material grid + palette."""
+def scene_from_grid(grid, pal: Palette, device) -> Scene:
+    """Build the render Scene on ``device`` from a dense material grid + palette.
+
+    A numpy grid is built on the host by the numpy builders; a u8 tensor on
+    its own device (``_scene_from_tensor``), to the same fields."""
+    global SCENES_FROM_NUMPY
+    if isinstance(grid, torch.Tensor):
+        return _scene_from_tensor(grid, pal, device)
+    SCENES_FROM_NUMPY += 1
     albedo, flags, meta = palette_arrays(pal)
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     b_mat, b_dist, b_dist_sh = build_brick_fields(grid, flags)
@@ -276,6 +293,67 @@ def scene_from_grid(grid: np.ndarray, pal: Palette, device) -> Scene:
         brick_mat=put(b_mat),
         brick_dist=put(b_dist),
         brick_dist_shadow=put(b_dist_sh),
+    )
+
+
+def build_brick_fields_tensor(grid: torch.Tensor, flags: np.ndarray, s: int):
+    """``build_brick_fields`` of a u8 tensor at brick shift ``s``, on the
+    tensor's device: (brick_mat, brick_dist, brick_dist_shadow), the two
+    distance fields as one batch of ``kernels/chebyshev.py``'s passes."""
+    from ..kernels import chebyshev
+
+    bs = 1 << s
+    bgrid = tuple(d >> s for d in grid.shape)
+    rows = grid.reshape(bgrid[0], bs, bgrid[1], bs, bgrid[2], bs).permute(0, 2, 4, 1, 3, 5)
+    rows = rows.contiguous().reshape(-1, bs ** 3)
+    solid = rows != 0
+    # the shadow field counts LIQUID voxels as air: the palette's few LIQUID
+    # ids are compared on the card, with no index tensor of the grid's size
+    hard = solid
+    for i in np.nonzero(np.asarray(flags) & int(Properties.LIQUID))[0]:
+        hard = hard & (rows != int(i))
+    occ = torch.stack([solid.any(dim=1), hard.any(dim=1)]).reshape(2, *bgrid)
+    dist, dist_shadow = chebyshev.distance(occ.to(torch.uint8), cap=BRICK_DIST_CAP)
+    return rows, dist, dist_shadow
+
+
+def _scene_from_tensor(grid: torch.Tensor, pal: Palette, device) -> Scene:
+    """``scene_from_grid`` of a u8 [Sx, Sy, Sz] tensor: every field is built
+    on the tensor's device and equals the numpy builders' bit for bit. The
+    distance fields come from ``kernels/chebyshev.py``; the palette tables
+    are three small uploads; ``y_max`` and the largest id come back to the
+    host in one read, after everything else has been queued."""
+    global SCENES_FROM_TENSOR
+    from ..kernels import chebyshev
+
+    if grid.dtype != torch.uint8 or grid.dim() != 3:
+        raise ValueError(f"scene_from_grid: a tensor grid must be u8 [Sx, Sy, Sz], got "
+                         f"{grid.dtype} {tuple(grid.shape)}")
+    g = grid.contiguous()
+    dev = g.device
+    Sx, Sy, Sz = g.shape
+    albedo, flags, meta = palette_arrays(pal)
+    m = 1 << MACRO_SHIFT
+    macro = g.reshape(Sx // m, m, Sy // m, m, Sz // m, m).amax(dim=(1, 3, 5))
+    rows, b_dist, b_dist_sh = build_brick_fields_tensor(g, flags, pick_brick_shift(g.shape))
+    enc = chebyshev.distance(g, cap=chebyshev.MAX_CAP, licence=True)
+    col = g.amax(dim=(0, 2))  # the largest id of each y
+    top = torch.where(col != 0, torch.arange(1, Sy + 1, device=dev), 0).max()
+    y_max, largest = torch.stack([top, col.max().long()]).tolist()
+    if largest >= 128:
+        raise ValueError("material ids must fit 7 bits (< 128)")
+    SCENES_FROM_TENSOR += 1
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return Scene(
+        grid_enc=enc.to(device),
+        macro=(macro != 0).to(torch.uint8).to(device),
+        albedo=put(albedo),
+        flags=put(flags),
+        metadata=put(meta),
+        y_max=int(y_max),
+        brick_mat=rows.to(device),
+        brick_dist=b_dist.to(device),
+        brick_dist_shadow=b_dist_sh.to(device),
     )
 
 

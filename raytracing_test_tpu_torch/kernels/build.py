@@ -7,7 +7,7 @@ a plain C interface, and a failed build raises. There is no interpreted
 fallback.
 
 ``library(name)`` builds one source on first use (``fused_march``,
-``fused_window``, ``brick_march``); ``build_all()`` starts one
+``fused_window``, ``brick_march``, ``chebyshev``); ``build_all()`` starts one
 ``nvcc`` per source, all at once, and loads them. A library is keyed on a
 hash of its source and the flags, and lands in ``_build/`` beside this
 package (listed in ``.gitignore``). Only a library that built and loaded is
@@ -177,8 +177,20 @@ def _declare_brick_march(lib: ctypes.CDLL) -> None:
     lib.brick_fine_launch.restype = ctypes.c_int
 
 
+def _declare_chebyshev(lib: ctypes.CDLL) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.cheb_pass_launch.argtypes = (
+        [P, P, P]  # in, out, ids (null but in the licence pass)
+        + [I] * 3  # O, L, I: the view [O, L, I], the pass along L
+        + [I] * 3  # cap, first, licence
+        + [P]  # stream
+    )
+    lib.cheb_pass_launch.restype = ctypes.c_int
+
+
 _DECLARE = {
     "fused_march": _declare_fused_march,
     "fused_window": _declare_fused_window,
     "brick_march": _declare_brick_march,
+    "chebyshev": _declare_chebyshev,
 }

@@ -181,18 +181,33 @@ def adam_state_to_optax(optimizer: torch.optim.Adam, params: FitParams):
     return np.int32(count), mu, nu
 
 
+def guide_occupancy(params: FitParams, tau: float = 1.0,
+                    density_scale: float = 25.0) -> torch.Tensor:
+    """The guide's u8 material grid, on the field's device: id 1 where the
+    density exceeds ``tau``, 0 elsewhere."""
+    with torch.no_grad():
+        dens = torch.nn.functional.softplus(params.density_raw) * density_scale
+        return (dens > tau).to(torch.uint8)
+
+
+def guide_palette() -> Palette:
+    """The guide's palette: one white material, id 1."""
+    pal = Palette()
+    pal.id_for(Block(0, int(rgb_to_u64(255, 255, 255))))
+    return pal
+
+
 def guide_scene_from_params(params: FitParams, tau: float = 1.0,
                             density_scale: float = 25.0) -> Scene:
     """Threshold the evolving density field into an occupancy guide Scene
     (fit-time occupancy re-thresholding): the seed march finds the current
     surface estimate, the window samples around it. Pruning is one-way:
-    matter cannot re-emerge inside a region the guide has pruned."""
-    with torch.no_grad():
-        dens = (torch.nn.functional.softplus(params.density_raw) * density_scale).cpu().numpy()
-    occ = (dens > tau).astype(np.uint8)  # material id 1 where occupied
-    pal = Palette()
-    pal.id_for(Block(0, int(rgb_to_u64(255, 255, 255))))
-    return scene_from_grid(occ, pal, params.density_raw.device)
+    matter cannot re-emerge inside a region the guide has pruned.
+
+    The threshold and the Scene are computed where the field lives
+    (``scene_from_grid`` of a tensor); only ``y_max`` comes to the host."""
+    occ = guide_occupancy(params, tau, density_scale)
+    return scene_from_grid(occ, guide_palette(), params.density_raw.device)
 
 
 def make_train_step_fused(params: FitParams, optimizer: torch.optim.Optimizer,

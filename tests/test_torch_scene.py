@@ -6,6 +6,8 @@ bit for bit; ray directions agree to 1e-6 (XLA may contract a*b+c into one
 FMA, PyTorch rounds each operation).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +18,9 @@ from raytracing_test_tpu.core import flatten as jflat
 from raytracing_test_tpu.render import camera as jcamera
 from raytracing_test_tpu.worldgen import terrain
 from raytracing_test_tpu_torch.core import flatten as tflat
+from raytracing_test_tpu_torch.core.color import rgb_to_u64
+from raytracing_test_tpu_torch.core.tree import Palette as TPalette
+from raytracing_test_tpu_torch.core.types import Block as TBlock, Properties as TProperties
 from raytracing_test_tpu_torch.render import camera as tcamera
 from tests.test_render_parity import _material_world
 
@@ -74,6 +79,97 @@ def test_brick_fields_match_jax(world):
         assert torch.equal(getattr(tj, name), getattr(ts, name)), name
     bare = {k: v for k, v in fields.items() if not k.startswith("brick_")}
     assert tflat.scene_from_jax(bare, "cpu").brick_mat is None
+
+
+def _palette(liquid: bool = False):
+    """Stone as id 1; with ``liquid``, water (REFRACTIVE | LIQUID) as id 2."""
+    pal = TPalette()
+    pal.id_for(TBlock(0, int(rgb_to_u64(120, 120, 120))))
+    if liquid:
+        pal.id_for(TBlock(int(TProperties.REFRACTIVE | TProperties.LIQUID),
+                          int(rgb_to_u64(0, 150, 10))))
+    return pal
+
+
+def _sparse_liquid(shape=(64, 32, 64), seed=5):
+    """A random sparse grid of stone and water: many bricks hold only water,
+    so the shadow field differs from the brick field."""
+    rng = np.random.default_rng(seed)
+    u = rng.random(shape)
+    grid = np.where(u < 0.0015, 1, np.where(u < 0.006, 2, 0)).astype(np.uint8)
+    return grid, _palette(liquid=True)
+
+
+def _empty():
+    return np.zeros((32, 32, 32), np.uint8), _palette()
+
+
+def _full():
+    return np.ones((32, 32, 32), np.uint8), _palette()
+
+
+def _corner():
+    grid = np.zeros((64, 64, 64), np.uint8)
+    grid[0, 0, 0] = 1
+    return grid, _palette()
+
+
+def _flat():
+    """64x16x64: every licence in y reaches the border."""
+    grid = np.zeros((64, 16, 64), np.uint8)
+    grid[30, 3, 17] = grid[5, 12, 60] = 1
+    return grid, _palette()
+
+
+TENSOR_WORLDS = [_material_world, _terrain64, _empty, _full, _corner, _flat, _sparse_liquid]
+
+
+@pytest.mark.parametrize("world", TENSOR_WORLDS, ids=[
+    "materials", "terrain64", "empty", "full", "corner", "flat64x16x64", "sparse-liquid"])
+def test_scene_from_tensor_matches_numpy(world):
+    """scene_from_grid of the grid as a u8 tensor (built by PyTorch and the
+    distance kernel's plain passes here) equals the numpy builders' Scene bit
+    for bit in every field, y_max and dtypes included; each path counts."""
+    grid, pal = world()
+    counts = (tflat.SCENES_FROM_NUMPY, tflat.SCENES_FROM_TENSOR)
+    want = tflat.scene_from_grid(grid, pal, "cpu")
+    got = tflat.scene_from_grid(torch.from_numpy(grid), pal, "cpu")
+    assert (tflat.SCENES_FROM_NUMPY, tflat.SCENES_FROM_TENSOR) == (counts[0] + 1, counts[1] + 1)
+    for f in dataclasses.fields(tflat.Scene):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(b, torch.Tensor):
+            assert a.dtype == b.dtype and a.shape == b.shape, f.name
+            assert torch.equal(a, b), f.name
+        else:
+            assert type(a) is type(b) and a == b, f.name
+    if world is _sparse_liquid:
+        assert not torch.equal(want.brick_dist, want.brick_dist_shadow)
+
+
+@pytest.mark.parametrize("s", [2, 3, 4])
+def test_brick_fields_tensor_each_shift(s):
+    """The tensor brick builder at each brick shift (world-512 runs 3) equals
+    brick_rows and chebyshev_distance_field of the grid's occupancy, the
+    shadow field with LIQUID voxels as air."""
+    grid, pal = _sparse_liquid((64, 32, 96), seed=s)
+    flags = tflat.palette_arrays(pal)[1]
+    rows, dist, shadow = tflat.build_brick_fields_tensor(torch.from_numpy(grid), flags, s)
+    want_rows = tflat.brick_rows(grid, s)
+    np.testing.assert_array_equal(rows.numpy(), want_rows)
+    bgrid = tuple(d >> s for d in grid.shape)
+    liquid = (flags & int(TProperties.LIQUID)) > 0
+    for got, occ in ((dist, want_rows > 0), (shadow, (want_rows > 0) & ~liquid[want_rows])):
+        want = tflat.chebyshev_distance_field(occ.any(axis=1).reshape(bgrid),
+                                              cap=tflat.BRICK_DIST_CAP)
+        assert got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_tensor_grid_rejects_wide_material_ids():
+    g = torch.zeros((8, 8, 8), dtype=torch.uint8)
+    g[1, 1, 1] = 128
+    with pytest.raises(ValueError):
+        tflat.scene_from_grid(g, _palette(), "cpu")
 
 
 def test_default_world_bricks():

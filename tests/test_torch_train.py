@@ -19,6 +19,7 @@ import torch
 from raytracing_test_tpu.app import checkpoint as jckpt
 from raytracing_test_tpu.config import RenderConfig, world_for_size
 from raytracing_test_tpu.core import flatten as jflat
+from raytracing_test_tpu.ops.mxu_lookup import mxu_nibble_lookup2
 from raytracing_test_tpu.parallel import sharding as jshard
 from raytracing_test_tpu.render import diff as jdiff
 from raytracing_test_tpu.render import fast as jfast
@@ -122,9 +123,34 @@ def test_guide_scene_matches_jax():
     tg = tshard.guide_scene_from_params(tshard.params_from_jax(d, a, device="cpu"))
     occ = np.asarray(jg.grid_enc) < 128
     assert 0.1 < occ.mean() < 0.9
-    for name in ("grid_enc", "albedo", "flags"):
-        np.testing.assert_array_equal(getattr(tg, name).numpy(), np.asarray(getattr(jg, name)))
+    for name in ("grid_enc", "macro", "albedo", "flags", "brick_mat", "brick_dist"):
+        want = np.asarray(getattr(jg, name))
+        got = getattr(tg, name).numpy()
+        assert got.dtype == want.dtype, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    nb = tg.brick_dist.numel()
+    decoded = np.asarray(mxu_nibble_lookup2(jg.brick_nib_shadow, jnp.arange(nb, dtype=jnp.int32)))
+    np.testing.assert_array_equal(tg.brick_dist_shadow.numpy().reshape(-1), decoded)
     assert tg.y_max == int(jg.y_max)
+
+
+def test_fit_world_builds_guides_on_tensors(monkeypatch):
+    """Every guide of a guided fit is built from the thresholded tensor: the
+    tensor counter rises once per rebuild, and no numpy builder runs."""
+    grid, pal = terrain.gen_world_grid(world_for_size(16))
+    scene = tflat.scene_from_grid(grid, pal, "cpu")
+
+    def refuse(*a, **k):
+        raise AssertionError("a numpy scene builder ran in the fit")
+
+    for name in ("build_grid_enc", "build_macro", "build_brick_fields", "world_y_max"):
+        monkeypatch.setattr(tflat, name, refuse)
+    counts = (tflat.SCENES_FROM_NUMPY, tflat.SCENES_FROM_TENSOR)
+    fcfg = FitConfig(views=2, steps=5, resolution=8, engine="fused", rethreshold_every=2)
+    _, losses = tfit.fit_world(scene, grid.shape, fcfg, batch=64)
+    assert len(losses) == 5 and np.isfinite(losses).all()
+    # rebuilds at steps 0, 2 and 4
+    assert (tflat.SCENES_FROM_NUMPY, tflat.SCENES_FROM_TENSOR) == (counts[0], counts[1] + 3)
 
 
 @pytest.fixture(scope="module")
