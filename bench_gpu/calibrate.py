@@ -2,8 +2,10 @@
 process on the card: the program's compared numbers on each of
 ``--seeds``, the control's (the reference at the precision below the
 configuration's, in the program's place) on ``--control-seeds``, and each
-planted fault's (``faults.py``) on ``--fault-seeds``. Each reading is one
-JSON line on standard output and in ``--out``.
+planted fault's (``faults/<driver>.py``) on ``--fault-seeds``. A cell on
+several chips runs each reading on all its ranks, started as ``run.py``
+starts them. Each reading is one JSON line on standard output and in
+``--out``.
 
     python3 bench_gpu/calibrate.py --workload fit-ref-1024 --seeds 1,2,3 \\
         --control-seeds 1,2,3 --fault-seeds 4,5,6 [--faults stale_guide] \\
@@ -16,8 +18,6 @@ as many answers as a check compares).
 from __future__ import annotations
 
 import argparse
-import contextlib
-import gc
 import json
 import sys
 import time
@@ -28,31 +28,21 @@ for p in (str(BENCH_DIR.parent), str(BENCH_DIR)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-import faults  # noqa: E402
 import harness  # noqa: E402
+import run  # noqa: E402
 
 
 def reading(spec, seed, seconds, device, fault=None, control=False):
-    import torch
-
-    run = harness.Run(spec=spec, seed=seed, seconds=seconds, trace=False,
-                      device=torch.device(device), t_start=time.perf_counter())
-    driver_name = spec["traffic"]["driver"]
-    driver = harness.load_module("drivers", driver_name)
-    check = harness.load_module("checks", driver_name)
-    plant = faults.plant(driver_name, fault) if fault else contextlib.nullcontext()
-    with plant:
-        state = driver.drive(run)
-        out = driver.outputs(run, state)
-    del state
-    gc.collect()
-    if run.device.type == "cuda":
-        torch.cuda.empty_cache()
-    rows = [("program" if fault is None else fault, check.check(run, out))]
+    """The compared numbers of one run (on every rank of the cell, as
+    ``run.py`` runs it), and of the control in the program's place."""
+    t0 = time.perf_counter()
+    r, out, _ = run.collect(spec, seed, seconds, False, device, t0, fault)
+    check = harness.cell_module(spec, "checks")
+    rows = [("program" if fault is None else fault, check.check(r, out))]
     if control:
-        rows.append(("control", check.check(run, check.control(run, out))))
+        rows.append(("control", check.check(r, check.control(r, out))))
     return [{"workload": spec["workload"], "kind": k, "seed": seed, "numbers": n,
-             "seconds": time.perf_counter() - run.t_start} for k, n in rows]
+             "seconds": time.perf_counter() - t0} for k, n in rows]
 
 
 def main(argv=None) -> int:
@@ -71,7 +61,7 @@ def main(argv=None) -> int:
     ints = lambda s: [int(x) for x in s.split(",") if x]  # noqa: E731
     seeds, ctrl = ints(args.seeds), set(ints(args.control_seeds))
     jobs = [(s, None, s in ctrl) for s in seeds + sorted(ctrl - set(seeds))]
-    names = faults.FAULTS[spec["traffic"]["driver"]]
+    names = harness.cell_module(spec, "faults").FAULTS
     for fault in (args.faults.split(",") if args.faults else names):
         jobs += [(s, fault, False) for s in ints(args.fault_seeds)]
     sink = open(args.out, "a") if args.out else None

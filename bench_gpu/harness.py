@@ -12,16 +12,26 @@ the name ``BENCHMARK.json`` gives it:
     drivers/<driver>.py         one user path: drive(run) sets it up, opens
                                 the timed window, closes it; outputs(run, state)
     checks/<driver>.py          the comparison with the plain reference
+    faults/<driver>.py          FAULTS (names) and plant(fault): the faults
+                                the driver's path can have, for the tests and
+                                the limits' readings (``calibrate.py``)
     limits/<workload>.json      the limit of each number a cell's check compares
     metrics/<metric>.py         one metric's reader: read(run) -> value or None;
                                 a metric ``<base>.<part>`` without a file of its
                                 own is read by ``metrics/<base>.py``
+    tests/tiny/<driver>.json    the driver's sizes for the CPU tests
+
+A cell on ``chips`` > 1 runs as that many ranks (``ranks.py``): every rank
+runs the same driver with a ``Run`` of its own (``rank``, ``world``), and
+``Run.agree`` / ``Run.gather`` give it rank 0's decisions and bring every
+rank's outputs to rank 0's check.
 """
 
 from __future__ import annotations
 
 import bisect
 import contextlib
+import gc
 import importlib.util
 import json
 import sys
@@ -40,15 +50,54 @@ def load_json(path: Path):
         return json.load(f)
 
 
-def load_module(kind: str, name: str):
-    """``bench_gpu/<kind>/<name>.py`` as a module (names may hold dots)."""
-    path = BENCH_DIR / kind / f"{name}.py"
+def load_module(kind: str, name: str, root: Path = BENCH_DIR):
+    """``<root>/<kind>/<name>.py`` as a module (names may hold dots)."""
+    path = Path(root) / kind / f"{name}.py"
     if not path.is_file():
-        raise FileNotFoundError(f"no {kind[:-1]} named {name!r} ({path})")
+        raise FileNotFoundError(f"no {kind} file for {name!r}: {path} is missing")
     spec = importlib.util.spec_from_file_location(f"bench_gpu_{kind}_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def cell_module(spec: dict, kind: str):
+    """The cell's ``drivers``, ``checks`` or ``faults`` module, found by the
+    name of its traffic's driver under the spec's ``root`` (the benchmark's
+    own directory unless a test gives another)."""
+    return load_module(kind, spec["traffic"]["driver"], spec.get("root", BENCH_DIR))
+
+
+def plant(spec: dict, fault: Optional[str]):
+    """The context that plants ``fault`` (one of ``faults/<driver>.py``'s
+    ``FAULTS``) under the cell's timed path while it is open; nothing for
+    None."""
+    if fault is None:
+        return contextlib.nullcontext()
+    faults = cell_module(spec, "faults")
+    if fault not in faults.FAULTS:
+        raise ValueError(f"driver {spec['traffic']['driver']!r} has no fault {fault!r}")
+    return faults.plant(fault)
+
+
+def drive(run: "Run", fault: Optional[str] = None):
+    """This rank's part of a run: the driver's set-up and timed window, with
+    ``fault`` planted, then its outputs. Returns (outputs, the device's peak
+    memory in bytes after the window; 0 off the card)."""
+    import torch
+
+    driver = cell_module(run.spec, "drivers")
+    with plant(run.spec, fault):
+        state = driver.drive(run)
+        if "window_s" not in run.records:
+            raise RuntimeError(f"driver {run.traffic['driver']!r} closed no window")
+        peak = torch.cuda.max_memory_allocated(run.device) if run.device.type == "cuda" else 0
+        out = driver.outputs(run, state)
+    del state
+    gc.collect()
+    if run.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out, peak
 
 
 def load_metric(name: str):
@@ -113,6 +162,8 @@ class Run:
     trace: bool
     device: object
     t_start: float = 0.0  # the process's start on the host clock: set-up runs from it
+    rank: int = 0
+    world: int = 1  # the cell's ranks: its chips
     records: Dict[str, object] = field(default_factory=dict)
     spans: Dict[str, List[float]] = field(default_factory=dict)
     device_trace: Optional[dict] = None
@@ -133,6 +184,42 @@ class Run:
 
             torch.cuda.synchronize(self.device)
 
+    def agree(self, flag) -> bool:
+        """Rank 0's ``flag`` on every rank (a broadcast from rank 0), so that
+        every rank takes rank 0's decision, such as closing the window after
+        the same step; on one rank, the flag itself."""
+        if self.world == 1:
+            return bool(flag)
+        import torch
+        import torch.distributed as dist
+
+        t = torch.tensor([int(bool(flag))], device=self.device)
+        dist.broadcast(t, src=0)
+        return bool(t.item())
+
+    def gather(self, obj):
+        """Every rank's ``obj`` (picklable, tensors on the host) in rank
+        order on rank 0, None on the other ranks; ``[obj]`` on one rank."""
+        if self.world == 1:
+            return [obj]
+        import torch.distributed as dist
+
+        out = [None] * self.world if self.rank == 0 else None
+        dist.gather_object(obj, out, dst=0)
+        return out
+
+    def _barrier(self) -> None:
+        """Wait on the host until every rank has come here (a one-element
+        all-reduce); nothing on one rank."""
+        if self.world == 1:
+            return
+        import torch
+        import torch.distributed as dist
+
+        t = torch.zeros(1, device=self.device)
+        dist.all_reduce(t)
+        t.item()
+
     @contextlib.contextmanager
     def span(self, name: str, sync: bool = False):
         """Host time of the body (seconds, in ``spans[name]``); ``sync``
@@ -152,10 +239,11 @@ class Run:
         self.spans.setdefault(name, []).append(t1 - t0)
 
     def open_window(self) -> None:
-        """End set-up and open the timed window: waits for the card, records
-        ``setup_s``, clears the spans, and in a traced run starts the
-        profiler."""
+        """End set-up and open the timed window: waits for the card (and on
+        several ranks for every rank's set-up), records ``setup_s``, clears
+        the spans, and in a traced run starts the profiler."""
         self.sync()
+        self._barrier()
         self.records["setup_s"] = time.perf_counter() - self.t_start
         self.spans.clear()
         if self.trace:
@@ -173,10 +261,11 @@ class Run:
         return time.perf_counter() - self._t_window
 
     def close_window(self) -> None:
-        """Close the window once the card has finished its work: records
-        ``window_s``, and in a traced run stops the profiler and reduces its
-        events into ``device_trace``."""
+        """Close the window once the card (on several ranks, every rank) has
+        finished its work: records ``window_s``, and in a traced run stops
+        the profiler and reduces its events into ``device_trace``."""
         self.sync()
+        self._barrier()
         wall = self.elapsed()
         self.records["window_s"] = wall
         if self._profiler is not None:

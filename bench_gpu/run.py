@@ -10,9 +10,12 @@ opens the timed window and closes it after ``--seconds`` (a traced run: the
 traffic's ``trace_seconds``, under the profiler). The run then checks what
 the timed path produced against the plain reference (``reference/``), and
 prints the numbers it compared beside their limits on standard error, then
-one JSON line on standard output. Without enough CUDA
-devices it exits with 2 and prints no result; with JAX or the JAX package
-loaded it exits with 3.
+one JSON line on standard output. A cell on several chips runs as that many
+ranks, one process a card (``ranks.py``); this process is rank 0 and alone
+prints. Without enough CUDA devices the run exits with 2 and prints no
+result; with JAX or the JAX package loaded on any rank it exits with 3; a
+rank that raises or ends early ends the run with 1 and that rank's
+traceback.
 """
 
 from __future__ import annotations
@@ -22,7 +25,6 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import gc  # noqa: E402
 import json  # noqa: E402
 import statistics  # noqa: E402
 import sys  # noqa: E402
@@ -35,34 +37,43 @@ for p in (str(ROOT), str(BENCH_DIR)):
         sys.path.insert(0, p)
 
 import harness  # noqa: E402
+import ranks  # noqa: E402
 
 
-def execute(spec: dict, seed: int, seconds: float, trace: bool, device, t_start: float) -> dict:
-    """Set the cell up, measure, check, and return the result dict (its
-    ``checks`` key last). ``t_start`` is the process's start on the host
-    clock: set-up runs from it to the window."""
+def collect(spec: dict, seed: int, seconds: float, trace: bool, device, t_start: float,
+            fault=None):
+    """Set the cell up, run its window and take its outputs, on every rank of
+    the cell (``ranks.py``), with ``fault`` planted (``faults/<driver>.py``)
+    where one is named. Returns rank 0's ``Run``, its outputs, and the peak
+    memory of the fullest device. ``t_start`` is the process's start on the
+    host clock: set-up runs from it to the window, and on several chips
+    includes starting and joining the followers."""
     import torch
 
-    run = harness.Run(spec=spec, seed=seed, seconds=seconds, trace=trace,
-                      device=torch.device(device), t_start=t_start)
-    if run.device.type == "cuda":
-        torch.cuda.init()
-    t_device = time.perf_counter()
-    traffic = spec["traffic"]
-    driver = harness.load_module("drivers", traffic["driver"])
-    state = driver.drive(run)
-    if "window_s" not in run.records:
-        raise RuntimeError(f"driver {traffic['driver']!r} closed no window")
+    with ranks.started(spec, seed, seconds, device, fault):
+        run = harness.Run(spec=spec, seed=seed, seconds=seconds, trace=trace,
+                          device=torch.device(device), t_start=t_start, world=spec["chips"])
+        if run.device.type == "cuda":
+            torch.cuda.init()
+        t_device = time.perf_counter()
+        out, peak = harness.drive(run, fault)
+        reports = run.gather({"peak": peak, "forbidden": []})
     print(f"bench: set-up: {t_device - t_start:.3f} s to the device (imports, CUDA), "
           f"{run.records['setup_s'] - (t_device - t_start):.3f} s the cell's own", file=sys.stderr)
-    peak = torch.cuda.max_memory_allocated(run.device) if run.device.type == "cuda" else 0
-    out = driver.outputs(run, state)
-    del state
-    gc.collect()
-    if run.device.type == "cuda":
-        torch.cuda.empty_cache()
+    held = sorted({m for r in reports for m in r["forbidden"]})
+    if held:
+        raise ranks.ForbiddenModules(", ".join(held))
+    return run, out, max(r["peak"] for r in reports)
 
-    check = harness.load_module("checks", traffic["driver"])
+
+def execute(spec: dict, seed: int, seconds: float, trace: bool, device, t_start: float,
+            fault=None) -> dict:
+    """Run the cell (``collect``), check it, and return the result dict (its
+    ``checks`` key last)."""
+    import torch
+
+    run, out, peak = collect(spec, seed, seconds, trace, device, t_start, fault)
+    check = harness.cell_module(spec, "checks")
     t_check = time.perf_counter()
     numbers = check.check(run, out)
     print(f"bench: set-up {run.records['setup_s']:.3f} s, window {run.records['window_s']:.3f} s, "
@@ -112,10 +123,20 @@ def main(argv=None) -> int:
               f"found {torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    result = execute(spec, args.seed, args.seconds, bool(args.trace), "cuda:0", T_START)
-    bad = harness.forbidden_modules()
-    if bad:
-        print(f"bench: forbidden modules loaded: {', '.join(bad)}", file=sys.stderr)
+    return report(spec, args.seed, args.seconds, bool(args.trace), "cuda:0", T_START)
+
+
+def report(spec: dict, seed: int, seconds: float, trace: bool, device, t_start: float) -> int:
+    """Run the cell and print its checks on standard error and its result
+    line on standard output; returns the exit code (3, and no result, where
+    a rank holds JAX or the JAX package once the window has closed)."""
+    try:
+        result = execute(spec, seed, seconds, trace, device, t_start)
+        bad = harness.forbidden_modules()
+        if bad:
+            raise ranks.ForbiddenModules(", ".join(bad))
+    except ranks.ForbiddenModules as e:
+        print(f"bench: forbidden modules loaded: {e}", file=sys.stderr)
         return 3
     print(f"bench: {result['attempted']} attempted, {result['failed']} failed", file=sys.stderr)
     for name, c in result["checks"].items():

@@ -63,16 +63,17 @@ def test_benchmark_json_contract():
 
 
 def test_nothing_loaded_is_jax():
-    """A fresh process that loads the harness, every driver, check, metric
-    and the reference, and imports the port's modules the drivers use, holds
+    """A fresh process that loads the harness, every driver, check, file of
+    faults, metric and the reference, and imports the port's modules the
+    drivers and faults use, holds
     no module whose top-level name is jax, jaxlib, flax or
     raytracing_test_tpu (the port's own name only begins with that)."""
     code = (
         "import sys; sys.path[:0] = [%r, %r]\n"
-        "import harness, faults, calibrate, run\n"
+        "import harness, calibrate, ranks, run\n"
         "import reference.march, reference.train, reference.scene, reference.world\n"
         "import roofline.march, roofline.window\n"
-        "for k in ('drivers', 'checks', 'metrics'):\n"
+        "for k in ('drivers', 'checks', 'faults', 'metrics'):\n"
         "    for p in sorted((harness.BENCH_DIR / k).glob('*.py')):\n"
         "        harness.load_module(k, p.stem)\n"
         "import raytracing_test_tpu_torch.app.session, raytracing_test_tpu_torch.app.fit\n"
