@@ -25,7 +25,9 @@ tensors); nothing here switches it. Gloo carries only ``all_reduce`` and
 ``broadcast`` for CUDA tensors, so on a gloo group holding CUDA tensors (two
 ranks sharing one card) ``all_gather`` and ``ppermute`` move their tensors
 through host memory: the data moves between ranks that way, every
-computation stays on the card. ``Mesh.host_copies`` counts those tensors.
+computation stays on the card. ``Mesh.host_copies`` counts those tensors;
+``Mesh.reduced_bytes`` counts the bytes ``psum`` and ``psum_`` hand to the
+all-reduce.
 """
 
 from __future__ import annotations
@@ -103,6 +105,7 @@ class Mesh:
         self._groups = groups
         self._ranks = ranks
         self.host_copies = 0  # tensors a gloo group moved through host memory
+        self.reduced_bytes = 0  # bytes psum and psum_ handed to the all-reduce
 
     @property
     def size(self) -> int:
@@ -136,10 +139,12 @@ class Mesh:
 
     def psum(self, x: torch.Tensor, axis: Axis) -> torch.Tensor:
         """Sum over ``axis`` (one ``all_reduce``); bool travels as int32."""
+        self.reduced_bytes += x.numel() * (4 if x.dtype == torch.bool else x.element_size())
         return self._reduce(x, axis, dist.ReduceOp.SUM)
 
     def psum_(self, x: torch.Tensor, axis: Axis) -> torch.Tensor:
         """``psum`` in place on ``x`` (a buffer of the caller's, not bool)."""
+        self.reduced_bytes += x.numel() * x.element_size()
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self._groups[_key(axis)])
         return x
 

@@ -44,6 +44,8 @@ from ..render.camera import Camera, ray_directions
 from ..render.diff import DiffScene, render_rays_diff, render_rays_diff_guided
 from .mesh import DATA_AXIS, Mesh
 
+GRAD_SYNCS = 0  # average_grads calls in this process (the data-parallel steps)
+
 
 def shard_scene(scene: Scene, mesh: Mesh) -> Scene:
     """The scene replicated: every rank holds all of it on its own device."""
@@ -68,15 +70,19 @@ def render_image_sharded(scene: Scene, camera: Camera, cfg: RenderConfig, mesh: 
 def average_grads(params: FitParams, mesh: Mesh) -> None:
     """Replace the two fields' gradients by their mean over the data axis:
     one all-reduce of both, coalesced into one buffer, divided by the axis
-    size."""
-    gs = [params.density_raw.grad, params.albedo_raw.grad]
-    flat = torch.cat([g.reshape(-1) for g in gs])
-    mesh.psum_(flat, DATA_AXIS)
-    flat /= torch.tensor(float(mesh.axis_size(DATA_AXIS)), device=flat.device)
-    i = 0
-    for g in gs:
-        g.copy_(flat[i:i + g.numel()].view_as(g))
-        i += g.numel()
+    size. The whole of it is the profiler range ``grad_sync``; each call
+    counts in ``GRAD_SYNCS``."""
+    global GRAD_SYNCS
+    GRAD_SYNCS += 1
+    with torch.profiler.record_function("grad_sync"):
+        gs = [params.density_raw.grad, params.albedo_raw.grad]
+        flat = torch.cat([g.reshape(-1) for g in gs])
+        mesh.psum_(flat, DATA_AXIS)
+        flat /= torch.tensor(float(mesh.axis_size(DATA_AXIS)), device=flat.device)
+        i = 0
+        for g in gs:
+            g.copy_(flat[i:i + g.numel()].view_as(g))
+            i += g.numel()
 
 
 def _reduce_step(loss: torch.Tensor, n_escaped: int, dropped: bool, mesh: Mesh):

@@ -187,3 +187,54 @@ def sleep_forever():
     import time
 
     time.sleep(3600)
+
+
+FIT_DP_STEPS = 3  # the checked steps of the benchmark's fits
+FIT_DP_BATCH = 256  # rays a step over all ranks
+
+
+def fit_dp_batch(step: int):
+    """Step ``step``'s whole batch (origins, dirs, targets), as every rank of
+    the data-parallel fit draws it."""
+    return train_batch(FIT_DP_BATCH, seed=40 + step)
+
+
+def fit_dp_steps(n_data: int, out_dir: str, bf16: bool = False):
+    """``FIT_DP_STEPS`` steps of ``fit_world(mesh=)``'s guided step
+    (``make_train_step_fused`` with a mesh) on the seeded random fields of
+    ``raw_params``, one guide thresholded from them, on an (n_data, 1) mesh
+    of CPU ranks. Saves each step's loss, Adam's first moment after step 0
+    and the fields after the last step; the last step runs under the CPU
+    profiler. With ``bf16`` the gradient's all-reduce travels in bfloat16.
+    Returns the counters' advance over the steps and the profiler's range
+    names."""
+    mesh = meshlib.make_mesh(n_data, 1, "cpu")
+    if bf16:
+        def psum_bf16(x, axis):
+            y = x.to(torch.bfloat16)
+            meshlib.Mesh.psum_(mesh, y, axis)
+            return x.copy_(y)
+        mesh.psum_ = psum_bf16
+    p = sharding.params_from_jax(*raw_params(), device="cpu")
+    opt = torch.optim.Adam(p.parameters(), lr=LR)
+    step = sharding.make_train_step_fused(p, opt, sharding.guide_scene_from_params(p), mesh=mesh)
+    syncs, nbytes = sharding.GRAD_SYNCS, mesh.reduced_bytes
+    losses = []
+    for k in range(FIT_DP_STEPS):
+        batch = [torch.from_numpy(x) for x in fit_dp_batch(k)]
+        if k < FIT_DP_STEPS - 1:
+            loss, _ = step(*batch)
+        else:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                loss, _ = step(*batch)
+        losses.append(float(loss))
+        if k == 0:
+            for name, leaf in (("density", p.density_raw), ("albedo", p.albedo_raw)):
+                _save(out_dir, f"fit_dp_m_{name}", opt.state[leaf]["exp_avg"])
+    _save(out_dir, "fit_dp_loss", np.asarray(losses))
+    _save(out_dir, "fit_dp_density", p.density_raw)
+    _save(out_dir, "fit_dp_albedo", p.albedo_raw)
+    return {"grad_syncs": sharding.GRAD_SYNCS - syncs, "reduced_bytes": mesh.reduced_bytes - nbytes,
+            "ranges": sorted({e.name for e in prof.events()}),
+            "jax_imported": sorted(m for m in sys.modules if m.split(".")[0] in
+                                   ("jax", "raytracing_test_tpu"))}
