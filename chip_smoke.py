@@ -179,10 +179,14 @@ Phases (any failure raises, and the script exits non-zero):
                 assert_images_close of the plain march with AO; the saved
                 world reloaded equal to the same edits in a session; the
                 departures of progressive and reference from fused at two
-                other views printed. Timing: each edit's sync (total; tree
-                rasterization, host box work, device apply apart; median and
-                max), each mode's frame, the frame after an edit, the AO
-                march alone.
+                other views printed. Each scripted edit's sync runs with
+                CUDA's sync debug mode at "error" (no read back from the
+                card) and builds each dirty brick's boxes once on the card
+                (mirror.BOX_BUILDS) with 6 cheb_pass launches. Timing: each
+                edit's sync (total; tree rasterization, the upload and row
+                writes, the box builders, the wait for the card apart;
+                median and max), each mode's frame, the frame after an
+                edit, the AO march alone.
 
  11. diff   -- the differentiable renders that are PyTorch operations here, as
                 they are XLA operations in the reference (render/diff.py), on
@@ -2002,8 +2006,14 @@ def scripted_edits(s):
     delete pairs and 4 places by pick from EDIT_POS; then a tower of 8 blocks
     above y_max, removed again; then a block at each of two corners of the
     window (the second at the top, y_max = Sy), removed again with one at
-    the origin corner. Returns the per-edit sync times [(total, rasterize,
-    boxes, apply) ms]."""
+    the origin corner. Each sync runs under ``set_sync_debug_mode("error")``
+    (a read back from the card in it raises) and must build the boxes of
+    each dirty brick once (``mirror.BOX_BUILDS``) with 6 ``cheb_pass``
+    launches. Returns the per-edit sync times [(total, rasterize, boxes,
+    apply) ms]."""
+    from raytracing_test_tpu_torch.core import mirror
+    from raytracing_test_tpu_torch.kernels import chebyshev
+
     Sx, Sy, Sz = s.grid.shape
 
     def look(k, yaw_off=0.0):
@@ -2013,20 +2023,29 @@ def scripted_edits(s):
     for k in range(len(EDIT_VIEWS)):
         picks += [lambda k=k: (look(k), s.place(k)), s.delete]
     picks += [lambda k=k: (look(k, 13.0), s.place(k + 2)) for k in range(4)]
-    times, y_maxes = [], []
+    times, y_maxes, bricks = [], [], []
 
     def run(edits):
         for edit in edits:
             edit()
+            launches, builds = chebyshev.LAUNCHES, mirror.BOX_BUILDS
             t0 = time.perf_counter()
-            n = s.sync()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                n = s.sync()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()
             total = (time.perf_counter() - t0) * 1e3
             if n == 0:
                 raise AssertionError("an edit of phase 10 left no dirty brick")
-            r, b = s.sync_ms["rasterize"], s.sync_ms["boxes"]
-            times.append((total, r, b, total - r - b))
+            got = (mirror.BOX_BUILDS - builds, chebyshev.LAUNCHES - launches)
+            if got != (n, 6 * n):
+                raise AssertionError(f"phase 10: a sync of {n} dirty bricks built {got[0]} boxes "
+                                     f"with {got[1]} cheb_pass launches, not {n} and {6 * n}")
+            times.append((total, s.sync_ms["rasterize"], s.sync_ms["boxes"], s.sync_ms["apply"]))
             y_maxes.append(s.scene.y_max)
+            bricks.append(n)
 
     run(picks)
     y0 = s.scene.y_max
@@ -2039,7 +2058,8 @@ def scripted_edits(s):
     t = len(picks)
     ys = (y0, y_maxes[t + 7], y_maxes[t + 15], y_maxes[t + 17], y_maxes[-1])
     print(f"edit: {len(times)} edits, y_max {ys[0]} -> {ys[1]} (tower) -> {ys[2]} (removed) -> "
-          f"{ys[3]} (top corner) -> {ys[4]}")
+          f"{ys[3]} (top corner) -> {ys[4]}; {sum(bricks)} dirty bricks, each built once on the "
+          f"card with 6 cheb_pass launches, no read back from the card in any sync")
     if ys[1:] != (y0 + 8, y0, Sy, y0):
         raise AssertionError(f"phase 10: y_max did not follow the tower and the corner: {ys}")
     return times
@@ -2223,11 +2243,12 @@ def edit_phase(dev, card, cli):
                  label="reference frame 512^2 (the session's render)")
     profile_step(lambda: s.render(cfg_ao, mode="fused"), card, steps=3,
                  label="fused frame with AO 512^2 (the session's render)")
-    q = lambda col: f"median {np.median(times[:, col]):.3f} max {times[:, col].max():.3f}"  # noqa: E731
+    q = lambda col: f"median {np.median(col):.3f} max {col.max():.3f}"  # noqa: E731
     print(f"edit timing: per-edit sync ms ({len(times)} edits, host clock with the device "
-          f"synchronised): total {q(0)}; tree rasterization (512 get_block calls a brick) {q(1)}; "
-          f"mirror box recomputation on the host {q(2)}; device apply (one host-to-device copy, "
-          f"slice writes) {q(3)} | {card}")
+          f"synchronised): total {q(times[:, 0])}; tree rasterization (512 get_block calls a "
+          f"brick) {q(times[:, 1])}; upload and brick_mat row writes (host launch time) "
+          f"{q(times[:, 3])}; box builders (host launch time) {q(times[:, 2])}; waiting for the "
+          f"card after them {q(times[:, 0] - times[:, 1:].sum(axis=1))} | {card}")
     print("edit timing: frame ms at 512x512 (host clock, sync + pick + render, median): "
           + ", ".join(f"{k} {v:.3f}" for k, v in frame_ms.items())
           + f"; AO march alone {ao_ms:.3f} ms (CUDA events, {d.width * d.height} points x 20 "

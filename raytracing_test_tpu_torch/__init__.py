@@ -10,8 +10,8 @@ the reference package so each counterpart is easy to find:
                            built with g++ into _build/ at first use
     core/flatten.py        Scene of tensors (prox_enc built at first use),
                            scene_from_grid, scene_from_jax
-    core/mirror.py         SceneMirror: dirty 8^3 bricks -> local boxes written
-                           into the Scene's tensors
+    core/mirror.py         SceneMirror: dirty 8^3 bricks -> local boxes built
+                           and written on the Scene's device
     render/camera.py       Camera, ray_directions
     render/hemisphere.py   the Fibonacci AO table, tangent frames, sampling
     render/renderer.py     DDA helpers, material_step, shade (AO included),

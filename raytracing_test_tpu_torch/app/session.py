@@ -171,11 +171,15 @@ class WorldSession:
         """Mirror dirty bricks into the grid + device scene; returns their count.
 
         Only dirty 8^3 bricks are re-rasterized into the host grid (512
-        ``tree.get_block`` calls each), and only the derived boxes they can
-        affect are recomputed and written on the device (core/mirror.py).
-        ``sync_ms`` keeps the host time of the rasterization and of the box
-        recomputation, and of the device apply's host side (its copies run
-        on, asynchronously, on the card)."""
+        ``tree.get_block`` calls each). Their voxel ids go to the Scene's
+        device in one copy, and only the derived boxes they can affect are
+        recomputed there and written in place (core/mirror.py).
+        ``sync_ms`` keeps the host times of the three parts: ``rasterize``;
+        ``apply``, the upload and the ``brick_mat`` row writes; ``boxes``,
+        the box builders. On a card the last two are host launch time (the
+        work runs on, asynchronously; a trace shows the box builders'
+        distance passes as ``cheb_pass``'s kernels ``cheb_strided`` and
+        ``cheb_contig``)."""
         bricks = self._dirty()
         if not bricks:
             return 0
@@ -200,13 +204,12 @@ class WorldSession:
                         )
         self._clear_dirty()
         t1 = time.perf_counter()
-        y_max, boxes = self._mirror.host_boxes(in_window, old_counts)
+        edits = self._mirror.write_bricks(in_window, old_counts)
         t2 = time.perf_counter()
-        if boxes:
-            self.scene = self._mirror.device_apply(y_max, boxes)
+        self.scene = self._mirror.build_boxes(edits)
         t3 = time.perf_counter()
-        self.sync_ms = {"rasterize": (t1 - t0) * 1e3, "boxes": (t2 - t1) * 1e3,
-                        "apply": (t3 - t2) * 1e3}
+        self.sync_ms = {"rasterize": (t1 - t0) * 1e3, "boxes": (t3 - t2) * 1e3,
+                        "apply": (t2 - t1) * 1e3}
         return len(bricks)
 
     # --------------------------------------------------------------- render

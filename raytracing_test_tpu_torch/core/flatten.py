@@ -32,7 +32,9 @@ builders below, or a u8 tensor, built on that tensor's device
 (``_scene_from_tensor``: the distance fields by the kernel of
 ``kernels/chebyshev.py``, the rest by PyTorch operations); both give the
 same fields bit for bit. ``SCENES_FROM_NUMPY`` and ``SCENES_FROM_TENSOR``
-count the Scenes each path built.
+count the Scenes each path built. ``core/mirror.py`` builds an edit's boxes
+with the same tensor builders (``macro_tensor``, ``brick_rows_tensor``,
+``brick_occupancy_tensor``, the distance kernel).
 
 The reference packs the two distance fields as f32 one-hot tables of nibble
 pairs (``brick_nib``, ``brick_nib_shadow``) only so that its TPU matrix unit
@@ -296,24 +298,45 @@ def scene_from_grid(grid, pal: Palette, device) -> Scene:
     )
 
 
+def macro_tensor(grid: torch.Tensor) -> torch.Tensor:
+    """``build_macro`` of a u8 tensor, on its device."""
+    m = 1 << MACRO_SHIFT
+    Sx, Sy, Sz = grid.shape
+    occ = grid.reshape(Sx // m, m, Sy // m, m, Sz // m, m).amax(dim=(1, 3, 5))
+    return (occ != 0).to(torch.uint8)
+
+
+def brick_rows_tensor(grid: torch.Tensor, s: int) -> torch.Tensor:
+    """``brick_rows`` of a u8 tensor, on its device."""
+    bs = 1 << s
+    bgrid = tuple(d >> s for d in grid.shape)
+    rows = grid.reshape(bgrid[0], bs, bgrid[1], bs, bgrid[2], bs).permute(0, 2, 4, 1, 3, 5)
+    return rows.contiguous().reshape(-1, bs ** 3)
+
+
+def brick_occupancy_tensor(rows: torch.Tensor, flags: np.ndarray) -> torch.Tensor:
+    """u8 [2, ...] of brick rows u8 [..., bs^3]: whether each brick holds a
+    solid voxel, and whether it holds one that is not LIQUID (the occupancy
+    of ``brick_dist`` and of ``brick_dist_shadow``)."""
+    solid = rows != 0
+    # the shadow field counts LIQUID voxels as air: the palette's few LIQUID
+    # ids are compared on the device, with no index tensor of the rows' size
+    hard = solid
+    for i in np.nonzero(np.asarray(flags) & int(Properties.LIQUID))[0]:
+        hard = hard & (rows != int(i))
+    return torch.stack([solid.any(dim=-1), hard.any(dim=-1)]).to(torch.uint8)
+
+
 def build_brick_fields_tensor(grid: torch.Tensor, flags: np.ndarray, s: int):
     """``build_brick_fields`` of a u8 tensor at brick shift ``s``, on the
     tensor's device: (brick_mat, brick_dist, brick_dist_shadow), the two
     distance fields as one batch of ``kernels/chebyshev.py``'s passes."""
     from ..kernels import chebyshev
 
-    bs = 1 << s
     bgrid = tuple(d >> s for d in grid.shape)
-    rows = grid.reshape(bgrid[0], bs, bgrid[1], bs, bgrid[2], bs).permute(0, 2, 4, 1, 3, 5)
-    rows = rows.contiguous().reshape(-1, bs ** 3)
-    solid = rows != 0
-    # the shadow field counts LIQUID voxels as air: the palette's few LIQUID
-    # ids are compared on the card, with no index tensor of the grid's size
-    hard = solid
-    for i in np.nonzero(np.asarray(flags) & int(Properties.LIQUID))[0]:
-        hard = hard & (rows != int(i))
-    occ = torch.stack([solid.any(dim=1), hard.any(dim=1)]).reshape(2, *bgrid)
-    dist, dist_shadow = chebyshev.distance(occ.to(torch.uint8), cap=BRICK_DIST_CAP)
+    rows = brick_rows_tensor(grid, s)
+    occ = brick_occupancy_tensor(rows, flags).reshape(2, *bgrid)
+    dist, dist_shadow = chebyshev.distance(occ, cap=BRICK_DIST_CAP)
     return rows, dist, dist_shadow
 
 
@@ -331,10 +354,9 @@ def _scene_from_tensor(grid: torch.Tensor, pal: Palette, device) -> Scene:
                          f"{grid.dtype} {tuple(grid.shape)}")
     g = grid.contiguous()
     dev = g.device
-    Sx, Sy, Sz = g.shape
+    Sy = g.shape[1]
     albedo, flags, meta = palette_arrays(pal)
-    m = 1 << MACRO_SHIFT
-    macro = g.reshape(Sx // m, m, Sy // m, m, Sz // m, m).amax(dim=(1, 3, 5))
+    macro = macro_tensor(g)
     rows, b_dist, b_dist_sh = build_brick_fields_tensor(g, flags, pick_brick_shift(g.shape))
     enc = chebyshev.distance(g, cap=chebyshev.MAX_CAP, licence=True)
     col = g.amax(dim=(0, 2))  # the largest id of each y
@@ -346,7 +368,7 @@ def _scene_from_tensor(grid: torch.Tensor, pal: Palette, device) -> Scene:
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return Scene(
         grid_enc=enc.to(device),
-        macro=(macro != 0).to(torch.uint8).to(device),
+        macro=macro.to(device),
         albedo=put(albedo),
         flags=put(flags),
         metadata=put(meta),

@@ -5,52 +5,70 @@ dirty 4 MiB slabs per frame (glBufferSubData, voxel_allocator.hpp:38-78).
 Here the per-edit sync cost is independent of world size:
 
   - the authoritative dense grid lives on the host (the session owns it);
-    edits arrive as dirty 8^3 bricks;
-  - every derived field is recomputed only in the local box that an edit can
-    affect, with the JAX module's boxes and margins: ``grid_enc`` within
-    Chebyshev 31 of the brick (its largest dilation radius, ``_ENC_MARGIN``
-    32), both brick distance fields within ``BRICK_DIST_CAP`` bricks, brick
-    rows and ``macro`` within the brick itself;
-  - the boxes go to the card in one host-to-device copy and are written into
-    the Scene's tensors by slice assignment and ``index_copy_`` (the analog
-    of the reference's ``_device_apply`` scan of ``dynamic_update_slice``;
-    its power-of-two padding of the batch only bounds XLA recompiles, and is
-    not needed here);
-  - ``y_max`` is maintained from per-height solid counts (O(box) per edit).
+    edits arrive as dirty 8^3 bricks. ``y_max`` is maintained there from
+    per-height solid counts (O(brick) per edit);
+  - the dirty bricks' voxel ids go to the Scene's device in one copy (512 B a
+    brick; from pinned memory and asynchronous on a card) and are written
+    into the Scene's ``brick_mat`` rows, the dense grid in brick-major order
+    (``write_bricks``);
+  - every derived field is then recomputed on that device, only in the box
+    that an edit can affect, with the JAX module's boxes and margins, by the
+    tensor builders of ``core/flatten.py`` (``build_boxes``): ``grid_enc``
+    within Chebyshev 31 of the brick (its largest dilation radius,
+    ``_ENC_MARGIN`` 32) from the ids of a read box gathered out of
+    ``brick_mat``; both brick distance fields within ``BRICK_DIST_CAP``
+    bricks from the occupancy of a read box of ``brick_mat`` rows, as one
+    batch of two volumes; ``macro`` from the brick itself. Each write box is
+    cut out and written into the Scene's tensor in place (the analog of the
+    reference's ``_device_apply`` scan of ``dynamic_update_slice``).
+
+Nothing is computed on the host beyond the box bounds, and nothing is read
+back from the device. On a card the distance work is the ``cheb_pass``
+kernel (``kernels/chebyshev.py``), six launches a dirty brick: three for the
+licences of ``grid_enc``, three for the batch of brick distance fields; CPU
+tensors run its plain version. ``BOX_BUILDS`` counts the dirty bricks whose
+boxes were built.
+
+At brick shifts 2 and 3 every box starts and ends on a multiple of the brick
+edge (the edit brick starts at a multiple of 8 or at ``S - 8``, and every
+margin is a multiple of 8), so a box of voxel ids is a box of whole
+``brick_mat`` rows. Larger bricks, and grids thinner than a brick, are
+rebuilt whole. Axes shorter than the recompute boxes fall back to full-axis
+boxes (still local along the other axes).
 
 The reference Scene carries only the nibble table of the shadow brick
 distances; this port's Scene keeps ``brick_dist_shadow`` as a tensor, so it
 is updated box by box like ``brick_dist``. ``prox_enc`` is not maintained:
 each sync returns a new Scene, whose ``prox_enc`` is rebuilt at first use.
-
-Axes shorter than the recompute boxes fall back to full-axis boxes (still
-local along the other axes); tests/test_torch_session.py holds the
-incremental result equal to a full ``scene_from_grid`` rebuild.
+tests/test_torch_session.py holds the incremental result equal to a full
+``scene_from_grid`` rebuild.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..kernels import chebyshev
 from .flatten import (
     BRICK_DIST_CAP,
+    MACRO_SHIFT,
     Scene,
-    brick_rows,
-    build_grid_enc,
-    build_macro,
-    chebyshev_distance_field,
+    brick_occupancy_tensor,
+    brick_rows_tensor,
+    macro_tensor,
     palette_arrays,
     pick_brick_shift,
     scene_from_grid,
 )
-from .types import Properties
 
 _ENC_MARGIN = 32  # grid_enc's largest dilation radius is 31
 _EDIT_BRICK = 8  # host dirty tracking granularity (core/tree.py _mark_dirty)
+
+BOX_BUILDS = 0  # dirty bricks whose boxes a mirror built on its Scene's device
 
 Brick = Tuple[int, int, int]
 
@@ -91,8 +109,18 @@ def _boxes(origin, core, write, read, shape):
     return ws, rs
 
 
-def _cut(a: np.ndarray, off, ext) -> np.ndarray:
+def _cut(a, off, ext):
+    """The box [off, off + ext) of the first three axes of an array or tensor."""
     return a[off[0]: off[0] + ext[0], off[1]: off[1] + ext[1], off[2]: off[2] + ext[2]]
+
+
+def _dense(rows: torch.Tensor, s: int) -> torch.Tensor:
+    """Brick rows u8 [bx, by, bz, bs^3] -> the voxel ids they hold, u8
+    [bx * bs, by * bs, bz * bs] (the inverse of ``brick_rows_tensor``)."""
+    bs = 1 << s
+    bx, by, bz = rows.shape[:3]
+    g = rows.reshape(bx, by, bz, bs, bs, bs).permute(0, 3, 1, 4, 2, 5)
+    return g.reshape(bx * bs, by * bs, bz * bs)
 
 
 class SceneMirror:
@@ -103,28 +131,41 @@ class SceneMirror:
         self.pal = pal
         self.device = torch.device(device)
         self.shift = pick_brick_shift(grid.shape)
-        self.scene = scene_from_grid(grid, pal, self.device)
-        self.y_counts = (grid > 0).sum(axis=(0, 2)).astype(np.int64)
+        self._rebuild()
+        bshape = tuple(d >> self.shift for d in grid.shape)
+        self._enc_dims = _box_dims(grid.shape, _EDIT_BRICK, _ENC_MARGIN)
+        self._bd_dims = _box_dims(bshape, _EDIT_BRICK >> self.shift, BRICK_DIST_CAP)
 
-    def _brick_occ(self, grid_box: np.ndarray):
-        """(occupancy, occupancy without LIQUID) of the bricks of a box."""
-        s = self.shift
-        bs = 1 << s
-        g = grid_box.reshape(grid_box.shape[0] >> s, bs, grid_box.shape[1] >> s, bs,
-                             grid_box.shape[2] >> s, bs)
-        _, flags, _ = palette_arrays(self.pal)
-        liquid = (flags & int(Properties.LIQUID)) > 0
-        return (g > 0).any(axis=(1, 3, 5)), ((g > 0) & ~liquid[g]).any(axis=(1, 3, 5))
+    def _rebuild(self) -> None:
+        self.scene = scene_from_grid(self.grid, self.pal, self.device)
+        self.y_counts = (self.grid > 0).sum(axis=(0, 2)).astype(np.int64)
+        self._palette = palette_arrays(self.pal)  # what the Scene's palette tables hold
 
-    def host_boxes(self, bricks: Sequence[Brick],
-                   old_counts: Optional[Dict[Brick, np.ndarray]] = None):
-        """The host half of ``apply_bricks``: maintain ``y_counts`` and
-        recompute every box the dirty bricks touch. Returns (y_max, boxes),
-        boxes a list of (field, start, array) with start a 3-tuple for a box
-        and an index array for ``brick_mat`` rows."""
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` on the Scene's device in one copy: from pinned memory and
+        asynchronous on a card, so the host does not wait for the device."""
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def write_bricks(self, bricks: Sequence[Brick],
+                     old_counts: Optional[Dict[Brick, np.ndarray]] = None) -> List[tuple]:
+        """The first half of ``apply_bricks``: maintain ``y_counts``, send the
+        dirty bricks' voxel ids to the device in one copy and write them into
+        the ``brick_mat`` rows; ``self.scene`` becomes a new Scene with the
+        new ``y_max`` (and palette tables, uploaded again only when the
+        palette changed). Returns [(edit brick start, its ids on the
+        device)] for ``build_boxes``. Without a local decomposition the
+        Scene is rebuilt whole, and the list is empty."""
+        if not bricks:
+            return []
         grid = self.grid
+        if self.shift > 3 or min(grid.shape) < _EDIT_BRICK:
+            # no local decomposition at this brick size: full rebuild
+            self._rebuild()
+            return []
         Sx, Sy, Sz = grid.shape
-        sh = self.shift
         if old_counts is not None:
             for b, old in old_counts.items():
                 y0 = b[1] * _EDIT_BRICK
@@ -135,67 +176,66 @@ class SceneMirror:
         nz = np.nonzero(self.y_counts)[0]
         y_max = int(nz.max()) + 1 if len(nz) else 0
 
-        enc_w, enc_r = _box_dims(grid.shape, _EDIT_BRICK, _ENC_MARGIN)
-        bshape = (Sx >> sh, Sy >> sh, Sz >> sh)
-        core_b = max(_EDIT_BRICK >> sh, 1)
-        bd_w, bd_r = _box_dims(bshape, core_b, BRICK_DIST_CAP)
-        nbx = _EDIT_BRICK >> sh
-        boxes = []
-        for bx, by, bz in bricks:
-            x0, y0, z0 = bx * _EDIT_BRICK, by * _EDIT_BRICK, bz * _EDIT_BRICK
-            if not (0 <= x0 < Sx and 0 <= y0 < Sy and 0 <= z0 < Sz):
-                continue
-            # the edit brick's box, shifted inward at borders (idempotent: the
-            # values come from the authoritative grid either way)
-            m0 = (min(x0, Sx - _EDIT_BRICK), min(y0, Sy - _EDIT_BRICK), min(z0, Sz - _EDIT_BRICK))
-            mb = _cut(grid, m0, (_EDIT_BRICK,) * 3)
+        # each edit brick's box, shifted inward at borders (idempotent: the
+        # values come from the authoritative grid either way)
+        starts = [(min(x0, Sx - _EDIT_BRICK), min(y0, Sy - _EDIT_BRICK), min(z0, Sz - _EDIT_BRICK))
+                  for x0, y0, z0 in ((bx * _EDIT_BRICK, by * _EDIT_BRICK, bz * _EDIT_BRICK)
+                                     for bx, by, bz in bricks)
+                  if 0 <= x0 < Sx and 0 <= y0 < Sy and 0 <= z0 < Sz]
+        if not starts:
+            return []
+        blocks = np.stack([_cut(grid, m0, (_EDIT_BRICK,) * 3) for m0 in starts])
+        if int(blocks.max()) >= 128:
+            raise ValueError("material ids must fit 7 bits (< 128)")
+        ids = self._upload(blocks)
 
-            # grid_enc write box, recomputed from a read box with margin
-            ws, rs = _boxes(m0, _EDIT_BRICK, enc_w, enc_r, grid.shape)
-            enc = build_grid_enc(_cut(grid, rs, enc_r))
-            boxes.append(("grid_enc", ws, _cut(enc, [w - r for w, r in zip(ws, rs)], enc_w)))
-
-            # brick rows + macro of the edit brick
-            b0 = [m >> sh for m in m0]
-            ids = [((b0[0] + dx) * bshape[1] + b0[1] + dy) * bshape[2] + b0[2] + dz
-                   for dx in range(nbx) for dy in range(nbx) for dz in range(nbx)]
-            boxes.append(("brick_mat", np.asarray(ids, np.int64), brick_rows(mb, sh)))
-            boxes.append(("macro", [m >> 2 for m in m0], build_macro(mb)))
-
-            # both brick distance fields' write boxes, recomputed locally
-            bws, brs = _boxes(b0, core_b, bd_w, bd_r, bshape)
-            occ, occ_sh = self._brick_occ(
-                _cut(grid, [r << sh for r in brs], [r << sh for r in bd_r]))
-            o = [w - r for w, r in zip(bws, brs)]
-            for name, oc in (("brick_dist", occ), ("brick_dist_shadow", occ_sh)):
-                boxes.append((name, bws, _cut(chebyshev_distance_field(oc, BRICK_DIST_CAP), o,
-                                              bd_w)))
-        return y_max, boxes
-
-    def device_apply(self, y_max: int, boxes) -> Scene:
-        """The device half of ``apply_bricks``: one host-to-device copy of
-        every box, then each is written in place into the Scene's tensors.
-        Returns a new Scene (fresh palette tensors, ``y_max``, no cached
-        ``prox_enc``) whose grid and brick tensors are the previous Scene's,
-        now updated: the previous Scene object aliases the new one."""
         sc = self.scene
-        flat = [a.reshape(-1) for _, _, a in boxes]
-        dev = torch.from_numpy(np.concatenate(flat)).to(self.device)
-        pos = 0
-        for (name, start, arr), f in zip(boxes, flat):
-            src = dev[pos: pos + f.size].view(arr.shape)
-            pos += f.size
-            dst = getattr(sc, name)
-            if name == "brick_mat":
-                dst.index_copy_(0, torch.from_numpy(start).to(self.device), src)
-            else:
-                dst[start[0]: start[0] + arr.shape[0], start[1]: start[1] + arr.shape[1],
-                    start[2]: start[2] + arr.shape[2]] = src
-        albedo, flags, meta = palette_arrays(self.pal)
-        put = lambda a: torch.from_numpy(a).to(self.device)
-        self.scene = dataclasses.replace(sc, albedo=put(albedo), flags=put(flags),
-                                         metadata=put(meta), y_max=y_max)
-        return self.scene
+        s = self.shift
+        nb = _EDIT_BRICK >> s
+        rows = sc.brick_mat.view(*sc.brick_grid, -1)
+        for m0, block in zip(starts, ids):
+            b0 = [m >> s for m in m0]
+            _cut(rows, b0, (nb,) * 3).copy_(brick_rows_tensor(block, s).view(nb, nb, nb, -1))
+        tables = {}
+        palette = palette_arrays(self.pal)
+        if not all(np.array_equal(a, b) for a, b in zip(palette, self._palette)):
+            self._palette = palette
+            tables = dict(zip(("albedo", "flags", "metadata"), map(self._upload, palette)))
+        self.scene = dataclasses.replace(sc, y_max=y_max, **tables)
+        return list(zip(starts, ids))
+
+    def build_boxes(self, edits: List[tuple]) -> Scene:
+        """The second half of ``apply_bricks``: for each edit brick of
+        ``write_bricks``, recompute every box it affects on the Scene's device
+        from the updated ``brick_mat`` and write it in place. Returns the
+        Scene."""
+        global BOX_BUILDS
+        sc = self.scene
+        s = self.shift
+        rows = sc.brick_mat.view(*sc.brick_grid, -1)
+        flags = self._palette[1]
+        enc_w, enc_r = self._enc_dims
+        bd_w, bd_r = self._bd_dims
+        core_b = _EDIT_BRICK >> s
+        for m0, block in edits:
+            # grid_enc write box, recomputed from the ids of a read box
+            ws, rs = _boxes(m0, _EDIT_BRICK, enc_w, enc_r, sc.shape3)
+            box_ids = _dense(_cut(rows, [r >> s for r in rs], [r >> s for r in enc_r]), s)
+            enc = chebyshev.distance(box_ids, cap=chebyshev.MAX_CAP, licence=True)
+            _cut(sc.grid_enc, ws, enc_w).copy_(_cut(enc, [w - r for w, r in zip(ws, rs)], enc_w))
+
+            _cut(sc.macro, [m >> MACRO_SHIFT for m in m0], (_EDIT_BRICK >> MACRO_SHIFT,) * 3).copy_(
+                macro_tensor(block))
+
+            # both brick distance fields' write boxes, from a read box's rows
+            bws, brs = _boxes([m >> s for m in m0], core_b, bd_w, bd_r, sc.brick_grid)
+            dist = chebyshev.distance(brick_occupancy_tensor(_cut(rows, brs, bd_r), flags),
+                                      cap=BRICK_DIST_CAP)
+            o = [w - r for w, r in zip(bws, brs)]
+            for name, d in zip(("brick_dist", "brick_dist_shadow"), dist):
+                _cut(getattr(sc, name), bws, bd_w).copy_(_cut(d, o, bd_w))
+            BOX_BUILDS += 1
+        return sc
 
     def apply_bricks(self, bricks: Sequence[Brick],
                      old_counts: Optional[Dict[Brick, np.ndarray]] = None) -> Scene:
@@ -206,14 +246,4 @@ class SceneMirror:
 
         Returns a new Scene; the tensors of the grid and the brick fields are
         updated in place, so the previous Scene object sees the edit too."""
-        if not bricks:
-            return self.scene
-        if self.shift > 3 or min(self.grid.shape) < _EDIT_BRICK:
-            # no local decomposition at this brick size: full rebuild
-            self.scene = scene_from_grid(self.grid, self.pal, self.device)
-            self.y_counts = (self.grid > 0).sum(axis=(0, 2)).astype(np.int64)
-            return self.scene
-        y_max, boxes = self.host_boxes(bricks, old_counts)
-        if not boxes:
-            return self.scene
-        return self.device_apply(y_max, boxes)
+        return self.build_boxes(self.write_bricks(bricks, old_counts))

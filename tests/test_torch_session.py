@@ -216,6 +216,58 @@ def test_mirror_matches_jax_mirror(shape):
     _assert_scene_equal(got, tflat.scene_from_jax(fields, "cpu"))
 
 
+def _box_edits(kind, shape, grid, pal):
+    """(cells and materials, dirty bricks outside the window) of one edit
+    batch for ``test_mirror_builds_boxes_on_the_scene_device``."""
+    Sx, Sy, Sz = shape
+    red = int(pal.id_for(RED))
+    if kind == "clipped":  # a brick whose boxes are clipped at x = Sx and z = 0
+        return [((Sx - 11, Sy // 2, 2), red)], []
+    if kind == "corner":  # the window's top corner (y_max = Sy), and a brick beyond it
+        return [((Sx - 1, Sy - 1, Sz - 1), red)], [(Sx >> 3, 0, 0)]
+    if kind == "two-bricks":  # a surface voxel deleted, its neighbour across x = 40 set
+        y = int(grid[39, :, 40].nonzero()[0].max())
+        return [((39, y, 40), 0), ((40, y + 1, 40), red)], []
+    water = int(pal.id_for(terrain.WATER))  # a brick of LIQUID alone, high in the air
+    return [((20, Sy - 12, 20), water), ((21, Sy - 12, 20), water)], []
+
+
+@pytest.mark.parametrize("shape", [(64, 64, 64), (256, 128, 256)])
+@pytest.mark.parametrize("kind", ["clipped", "corner", "two-bricks", "liquid"])
+def test_mirror_builds_boxes_on_the_scene_device(kind, shape, monkeypatch):
+    """A sync builds each in-window dirty brick's boxes with the tensor
+    builders (no numpy box builder runs), counts one ``BOX_BUILDS`` each, and
+    its Scene equals ``scene_from_grid`` bit for bit."""
+    from raytracing_test_tpu_torch.core import mirror as tmirror
+
+    wcfg = WorldConfig(width=min(shape[0], 96), length=min(shape[2], 96), grid_shape=shape)
+    grid, pal = terrain.gen_world_grid(wcfg)
+    m = SceneMirror(grid, pal, "cpu")
+    cells, outside = _box_edits(kind, shape, grid, pal)
+    bricks = sorted({(x >> 3, y >> 3, z >> 3) for (x, y, z), _ in cells})
+    old = {b: y_brick_counts(grid, b) for b in bricks}
+    for (x, y, z), mat in cells:
+        grid[x, y, z] = mat
+
+    def numpy_builder(*_, **__):
+        raise AssertionError("a numpy box builder ran during the sync")
+
+    builds = tmirror.BOX_BUILDS
+    with monkeypatch.context() as patch:
+        for name in ("build_grid_enc", "chebyshev_distance_field"):
+            patch.setattr(tflat, name, numpy_builder)
+            patch.setattr(tmirror, name, numpy_builder, raising=False)
+        scene = m.apply_bricks(bricks + outside, old)
+    assert tmirror.BOX_BUILDS - builds == len(bricks)
+    _assert_scene_equal(scene, tflat.scene_from_grid(grid, pal, "cpu"))
+    if kind == "corner":
+        assert scene.y_max == shape[1]
+    if kind == "liquid":  # the water's brick holds a solid, but no shadow occluder
+        (x, y, z), _ = cells[0]
+        b = (x >> m.shift, y >> m.shift, z >> m.shift)
+        assert scene.brick_dist[b] == 0 and scene.brick_dist_shadow[b] > 0
+
+
 # ---- the session
 
 
